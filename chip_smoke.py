@@ -1,0 +1,668 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--phases kernels,golden,main] [--out results.json]
+    python3 chip_smoke.py --rehearse      # plumbing only, on the CPU
+
+Phases, each of which passes or ends the run with a non-zero exit:
+  1. device — the card's name, count, torch and CUDA versions, then the
+     build of every kernel source in src/repro_torch/kernels/csrc (one
+     nvcc per source, all at once), timed.
+  2. kernels — each kernel wrapper on tensors on the card, at the main
+     path's shapes, against its plain PyTorch version on the same inputs:
+     integers bit for bit, dense f32 at rtol 1e-6. Times each kernel, its
+     plain version and, where one PyTorch call does comparable work, that
+     call (CUDA events, warmed up), beside the least time the card could
+     take (bytes over 3.35 TB/s, or operations over 67 T/s).
+  3. golden — PiperPipeline on the card over tests/goldens/fused_small.npz
+     reproduces the stored labels, ids and dense values and their digest.
+  4. main — the pipeline at CRITEO (5K) and CRITEO_1M: a utf8 feed and a
+     binary BinaryChunkFeed through run_stream, run_scan and a few requests
+     served by FrozenVocabTransform, and once with track_vocab_counts and
+     finalize_topk, each held to the same pipeline with the fused hints
+     False (the unfused chain) over the whole output, padding rows
+     included. Every launch counter is set to 0 before each of these runs
+     and read after; a kernel of the path that never launched fails the run.
+
+The last lines are the {"kernels": [...]} summary, the nvidia-smi name
+and power limit, and {"ok": true, "device": {...}}. Without a CUDA device,
+or without the repository's src/ beside this file, it exits non-zero and
+prints no result. --rehearse runs the same phases on the CPU at a tiny
+size, where every wrapper takes its plain version: it checks the script,
+times nothing and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+CUDA_CORE_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
+TPU_KERNELS = {  # kernel → (replaced Pallas kernel, the port's source)
+    "decode_scan": ("src/repro/kernels/decode_utf8/kernel.py:195", "decode_utf8.cu"),
+    "fused_genvocab": ("src/repro/kernels/fused_vocab/kernel.py:113", "fused_vocab.cu"),
+    "fused_genvocab_slabs": ("src/repro/kernels/fused_vocab/kernel.py:215", "fused_vocab.cu"),
+    "fused_transform": ("src/repro/kernels/fused_xform/kernel.py:80", "fused_xform.cu"),
+    "fused_mod_dense": ("src/repro/kernels/fused_xform/kernel.py:136", "fused_xform.cu"),
+}
+# The kernels the port's main path runs; fused_mod_dense is a measured
+# alternative route for loop ② at 1M and does not run on it.
+PATH_KERNELS = ("decode_scan", "fused_genvocab", "fused_genvocab_slabs", "fused_transform")
+RANGES = {"5K": 5000, "1M": 1_000_000}
+CHUNK_BYTES = 1 << 20
+MAX_ROWS = 1 << 14
+# Rows of the main path's feeds: on the card, and in a CPU rehearsal.
+ROWS = {"utf8": 1 << 18, "binary": 1 << 22}
+REHEARSAL_ROWS = {"utf8": 8000, "binary": 40000}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def expect(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    """Least time (ms) the card could take: bytes over the memory rate or
+    operations over the peak rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+_HEX = "0123456789abcdef"
+HOSTILE_KINDS = ("normal", "empty_fields", "all_delim", "invalid_hex", "overlong_hex",
+                 "overlong_decimal", "weird_minus", "long_straddle")
+
+
+def hostile_rows(np, seed: int, n_dense: int, n_sparse: int, n_rows: int,
+                 truncate: int) -> bytes:
+    """Rows of every hostile class: empty fields and all-delimiter rows,
+    invalid and overlong hex, overlong decimals, stray minus signs, and
+    fields longer than the decode kernel's 4 KiB tile. ``truncate`` cuts
+    that many bytes (the newline first) off the final row."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n_rows):
+        kind = rng.choice(HOSTILE_KINDS)
+        label = [str(rng.integers(0, 2))]
+        dense = [str(rng.integers(-99, 1000)) for _ in range(n_dense)]
+        sparse = ["".join(rng.choice(list(_HEX), size=rng.integers(1, 9)))
+                  for _ in range(n_sparse)]
+        if kind == "empty_fields":
+            for fields in (dense, sparse):
+                for i in range(len(fields)):
+                    if rng.random() < 0.5:
+                        fields[i] = ""
+        elif kind == "all_delim":
+            label, dense, sparse = [""], [""] * n_dense, [""] * n_sparse
+        elif kind == "invalid_hex":
+            sparse[rng.integers(0, n_sparse)] = "".join(
+                rng.choice(list("ghijklmnopqrstuvwxyzGHIJKLZ!@"), size=4))
+        elif kind == "overlong_hex":
+            sparse[rng.integers(0, n_sparse)] = "".join(
+                rng.choice(list(_HEX), size=rng.integers(9, 17)))
+        elif kind == "overlong_decimal":
+            dense[rng.integers(0, n_dense)] = str(rng.integers(10**10, 10**14))
+        elif kind == "weird_minus":
+            dense[rng.integers(0, n_dense)] = str(rng.choice(["--7", "1-2", "-", "3-"]))
+        elif kind == "long_straddle":
+            sparse[rng.integers(0, n_sparse)] = "".join(rng.choice(list(_HEX), size=4096 + 40))
+        rows.append("\t".join(label + dense + sparse).encode())
+    raw = b"".join(r + b"\n" for r in rows)
+    return raw[: len(raw) - min(truncate, len(rows[-1]) + 1)] if truncate else raw
+
+
+class Smoke:
+    """The phases, on the card, or on the CPU for a rehearsal."""
+
+    def __init__(self, torch, np, rehearse: bool):
+        self.torch, self.np = torch, np
+        self.rehearse = rehearse
+        self.dev = torch.device("cpu" if rehearse else "cuda")
+
+    # -- measurement ---------------------------------------------------- #
+    def sync(self) -> None:
+        if not self.rehearse:
+            self.torch.cuda.synchronize()
+
+    def time_ms(self, fn, reps: int = 20, warmup: int = 3) -> dict:
+        """Two times of one call of ``fn``, averaged over ``reps`` calls:
+
+        ``device_ms`` — the device time of the kernels the call launches,
+        summed from a torch.profiler trace (the kernel's own time);
+        ``call_ms`` — CUDA-event time per call, calls back to back, which
+        also holds whatever host time the wrapper takes between launches.
+        Both None in a rehearsal."""
+        if self.rehearse:
+            fn()
+            return {"device_ms": None, "call_ms": None}
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        call_ms = start.elapsed_time(end) / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device_us = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+        )
+        return {"device_ms": device_us / 1e3 / reps if device_us else None, "call_ms": call_ms}
+
+    def times(self, kernel, plain, library=None, plain_reps: int = 20) -> dict:
+        """The kernel's, its plain version's and the library call's times:
+        ``*_ms`` is the device time (the event time where the trace shows
+        none, as ``ms_from`` says), ``*_call_ms`` the event time per call."""
+        k = self.time_ms(kernel)
+        p = self.time_ms(plain, reps=plain_reps)
+        lib = self.time_ms(library) if library else {"device_ms": None, "call_ms": None}
+
+        def pick(t):
+            return t["device_ms"] if t["device_ms"] is not None else t["call_ms"]
+
+        def source(t):
+            return "profiler" if t["device_ms"] is not None else "cuda_events"
+
+        return {"ms": pick(k), "plain_ms": pick(p), "library_ms": pick(lib),
+                "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"],
+                "library_call_ms": lib["call_ms"],
+                "ms_from": {"ms": source(k), "plain_ms": source(p), "library_ms": source(lib)}}
+
+    def wall_seconds(self, fn, n: int = 5) -> list[float]:
+        """Host-clock seconds of each of ``n`` runs of ``fn`` (one in a
+        rehearsal), each ending in a synchronize."""
+        times = []
+        for _ in range(1 if self.rehearse else n):
+            self.sync()
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    def device_seconds(self, fn) -> float | None:
+        """Seconds the device spent in kernels and copies during one call of
+        ``fn`` (torch.profiler); None in a rehearsal."""
+        if self.rehearse:
+            fn()
+            return None
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+        ) / 1e6
+
+    # -- phase 1 -------------------------------------------------------- #
+    def device(self) -> dict:
+        torch = self.torch
+        if self.rehearse:
+            info = {"name": "cpu (rehearsal)", "count": 0, "torch": torch.__version__,
+                    "nvidia_smi": "cpu rehearsal: no card"}
+            emit({"phase": "device", **info})
+            return info
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[0]
+        info = {"name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+                "torch": torch.__version__, "cuda": torch.version.cuda,
+                "python": sys.version.split()[0], "nvidia_smi": smi}
+        emit({"phase": "device", **info})
+        from repro_torch.kernels import _build
+
+        t0 = time.perf_counter()
+        paths = _build.build()
+        seconds = time.perf_counter() - t0
+        ptxas = {
+            src: [ln.strip() for ln in Path(f"{path}.log").read_text().splitlines()
+                  if "registers" in ln or "Compiling entry" in ln]
+            for src, path in paths.items()
+        }
+        emit({"phase": "build", "seconds": seconds,
+              "libraries": {k: str(v.relative_to(ROOT)) for k, v in paths.items()},
+              "ptxas": ptxas})
+        return info
+
+    # -- phase 2 -------------------------------------------------------- #
+    def kernels(self, data) -> dict:
+        """Every kernel against its plain version at the main path's
+        shapes. Returns entry name → record."""
+        torch, np, dev = self.torch, self.np, self.dev
+        from repro_torch.core import ops, schema as schema_lib, vocab as vocab_lib
+        from repro_torch.core.uint32 import as_u32
+        from repro_torch.kernels.decode_utf8 import ops as dops, ref as dref
+        from repro_torch.kernels.fused_vocab import ops as fvops, ref as fvref
+        from repro_torch.kernels.fused_xform import ops as fxops, ref as fxref
+
+        sch = schema_lib.CRITEO
+        hex_table = sch.field_is_hex()
+        records = {}
+
+        def record(name, rec):
+            records[name] = rec
+            emit({"phase": "kernels", "kernel": name, **rec})
+
+        # decode: the first 1 MiB chunk of the utf8 feed, then hostile chunks
+        def decode_both(buf, max_rows, what):
+            kw = dict(n_fields=sch.n_fields, max_rows=max_rows, n_dense=sch.n_dense,
+                      n_sparse=sch.n_sparse)
+            got = dops.decode(buf, hex_table, **kw)
+            want = dref.decode_bytes(buf, hex_table, **kw)
+            self.sync()
+            for name, g, w in zip(("label", "dense", "sparse", "valid"), got, want):
+                expect(torch.equal(g, w), f"decode {what}: {name} differs from the plain version")
+            return kw
+
+        buf = torch.from_numpy(data["utf8_chunks"][0]).to(dev)
+        kw = decode_both(buf, MAX_ROWS, "synth 1 MiB chunk")
+        cases = [(3000, 2048, 7), (3000, 4096, 0), (400, 512, 1), (64, 32, 40)]
+        for seed, (n_rows, max_rows, truncate) in enumerate(cases):
+            raw = hostile_rows(np, seed, sch.n_dense, sch.n_sparse, n_rows, truncate)
+            hostile = np.zeros(len(raw) + 4096, np.uint8)
+            hostile[: len(raw)] = np.frombuffer(raw, np.uint8)
+            decode_both(torch.from_numpy(hostile).to(dev), max_rows,
+                        f"hostile chunk {seed} ({n_rows} rows, max_rows {max_rows})")
+        n = buf.numel()
+        b_ms, b_by = bound(n + MAX_ROWS * (4 * sch.n_fields + 1), 12 * n)
+        record("decode_scan", {
+            "max_abs_err": 0,
+            **self.times(lambda: dops.decode(buf, hex_table, **kw),
+                         lambda: dref.decode_bytes(buf, hex_table, **kw), plain_reps=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"{n} B chunk, max_rows {MAX_ROWS}",
+        })
+
+        # loops ① and ②: the decoded chunk, into states with some history
+        _, dense, sparse, valid = dops.decode(buf, hex_table, **kw)
+        rows, n_cols = sparse.shape
+        n_dense = dense.shape[1]
+        col_base = torch.arange(n_cols, device=dev)[None, :]
+        for tag, vr in RANGES.items():
+            base = vocab_lib.VocabState.init(n_cols, vr, track_counts=True, device=dev)
+            for c in data["utf8_chunks"][1:3]:
+                b = dops.decode(torch.from_numpy(c).to(dev), hex_table, **kw)
+                base = ops.fused_vocab_update(base, b[2], b[3], use_kernel=False)
+            modded = as_u32(sparse) % vr  # int64 [rows, n_cols]
+            for track, name in ((False, "fused_genvocab"), (True, "fused_genvocab_slabs")):
+                def fresh(rows_seen):
+                    return vocab_lib.VocabState(
+                        base.first_pos.clone(),
+                        torch.tensor(rows_seen, dtype=torch.int32, device=dev),
+                        base.counts.clone() if track else None)
+
+                # the state's own offset, and three rows below the ceiling
+                # (on the CPU the wrapper's host-side ceiling guard raises)
+                offsets = [int(base.rows_seen)] + ([] if self.rehearse else [vocab_lib.NEVER - 3])
+                for rows_seen in offsets:
+                    got = fvops.fused_update(fresh(rows_seen), sparse, valid)
+                    want = fresh(rows_seen)
+                    want_seen = fvref.fused_genvocab(
+                        want.first_pos, want.counts, sparse, valid, want.rows_seen)
+                    self.sync()
+                    what = f"{name} V={vr} rows_seen={rows_seen}"
+                    expect(torch.equal(got.first_pos, want.first_pos), f"{what}: first_pos differs")
+                    expect(torch.equal(got.rows_seen, want_seen), f"{what}: rows_seen differs")
+                    if track:
+                        expect(torch.equal(got.counts, want.counts), f"{what}: counts differ")
+                st = fresh(int(base.rows_seen))
+                pos = vocab_lib.positions(st.rows_seen, rows, valid)
+                live = (pos < vocab_lib.NEVER)[:, None].expand(rows, n_cols)
+                touched = int(torch.unique((col_base * vr + modded)[live]).numel())
+                # hashes and valid flags in, rows_seen in and out, each touched
+                # slot of each plane read and written once
+                planes = 2 if track else 1
+                b_ms, b_by = bound(rows * n_cols * 4 + rows + 8 + touched * 8 * planes,
+                                   4 * rows * n_cols)
+                idx_t = modded.t().contiguous()
+                src = pos[None, :].expand_as(idx_t).contiguous()
+                record(f"{name}@{tag}", {
+                    "max_abs_err": 0,
+                    **self.times(
+                        lambda: fvops.fused_update(st, sparse, valid),
+                        lambda: fvref.fused_genvocab(
+                            st.first_pos, st.counts, sparse, valid, st.rows_seen),
+                        lambda: st.first_pos.scatter_reduce_(1, idx_t, src, reduce="amin")),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_call": "Tensor.scatter_reduce_(amin) on pre-modded indices",
+                    "shape": f"[{rows}, {n_cols}] into [{n_cols}, {vr}]",
+                })
+
+            # loop ② through a vocabulary finalized from that state
+            vocab = vocab_lib.finalize(base)
+            ids_k, dense_k = fxops.fused_transform(vocab, sparse, dense)
+            ids_r, dense_r = fxref.fused_transform(vocab.table, sparse, dense)
+            mod_k, dmod_k = fxops.fused_mod_dense(sparse, dense, vocab_range=vr)
+            mod_r, _ = fxref.fused_mod_dense(sparse, dense, vr)
+            self.sync()
+            expect(torch.equal(ids_k, ids_r), f"fused_transform V={vr}: ids differ")
+            expect(torch.equal(mod_k, mod_r), f"fused_mod_dense V={vr}: modded differ")
+            touched = int(torch.unique(col_base * vr + modded).numel())
+            idx_t = modded.t().contiguous()
+            io_bytes = rows * (n_cols + n_dense) * 4 * 2
+            for name, dk, fn, plain, table_bytes, lib in (
+                ("fused_transform", dense_k,
+                 lambda: fxops.fused_transform(vocab, sparse, dense),
+                 lambda: fxref.fused_transform(vocab.table, sparse, dense), touched * 4,
+                 lambda: torch.gather(vocab.table, 1, idx_t)),
+                ("fused_mod_dense", dmod_k,
+                 lambda: fxops.fused_mod_dense(sparse, dense, vocab_range=vr),
+                 lambda: fxref.fused_mod_dense(sparse, dense, vr), 0, None),
+            ):
+                expect(torch.allclose(dk, dense_r, rtol=1e-6, atol=0),
+                       f"{name} V={vr}: dense beyond rtol 1e-6")
+                b_ms, b_by = bound(io_bytes + table_bytes, rows * (3 * n_cols + 20 * n_dense))
+                rec = {
+                    "max_abs_err": float((dk - dense_r).abs().max()),
+                    **self.times(fn, plain, lib),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "shape": f"sparse [{rows}, {n_cols}], dense [{rows}, {n_dense}], V={vr}",
+                }
+                if lib:
+                    rec["library_call"] = "torch.gather on pre-modded indices (ids only)"
+                record(f"{name}@{tag}", rec)
+        return records
+
+    # -- phase 3 -------------------------------------------------------- #
+    def golden(self) -> None:
+        np = self.np
+        from repro_torch.core import pipeline as P
+        from repro_torch.data import synth
+
+        g = np.load(ROOT / "tests" / "goldens" / "fused_small.npz")
+        cb = int(g["chunk_bytes"])
+        pipe = P.PiperPipeline(P.PipelineConfig(
+            chunk_bytes=cb, max_rows_per_chunk=int(g["max_rows_per_chunk"]),
+            device=str(self.dev)))
+        outs = list(pipe.run_stream(lambda: synth.chunk_stream(g["buf"], cb)))
+        label = np.concatenate([o.label[o.valid].cpu().numpy() for o in outs])
+        dense = np.concatenate([o.dense[o.valid].cpu().numpy() for o in outs])
+        sparse = np.concatenate([o.sparse[o.valid].cpu().numpy() for o in outs])
+        expect(np.array_equal(label, g["label"]), "golden: labels differ")
+        expect(np.array_equal(sparse, g["sparse"]), "golden: sparse ids differ")
+        expect(np.allclose(dense, g["dense"], rtol=1e-6, atol=0), "golden: dense beyond rtol 1e-6")
+        h = hashlib.sha256()
+        h.update(np.ascontiguousarray(label, np.int32).tobytes())
+        h.update(np.ascontiguousarray(sparse, np.int32).tobytes())
+        expect(h.hexdigest() == str(g["digest"]), "golden: digest differs")
+        emit({"phase": "golden", "rows": int(label.shape[0]), "digest": h.hexdigest(), "ok": True})
+
+    # -- phase 4 -------------------------------------------------------- #
+    def _same(self, got, want, what: str) -> None:
+        torch = self.torch
+        expect(len(got) == len(want), f"{what}: {len(got)} chunks vs {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            for f in ("label", "sparse", "valid"):
+                expect(torch.equal(getattr(a, f), getattr(b, f)), f"{what}: chunk {i} {f} differs")
+            expect(torch.allclose(a.dense, b.dense, rtol=1e-6, atol=0),
+                   f"{what}: chunk {i} dense beyond rtol 1e-6")
+            expect(bool(torch.isfinite(a.dense).all()), f"{what}: chunk {i} dense not finite")
+
+    def _flat(self, outs):
+        from repro_torch.core import schema as schema_lib
+
+        return schema_lib.ProcessedBatch(**{
+            f: self.torch.cat([getattr(o, f) for o in outs])
+            for f in ("label", "dense", "sparse", "valid")})
+
+    def main_path(self, data, tag: str, vocab_range: int) -> dict:
+        """One vocab range's main path with its launches counted, every run
+        held to the unfused chain. Returns kernel → launches."""
+        torch, np = self.torch, self.np
+        from repro_torch.core import pipeline as P, schema as schema_lib, vocab as vocab_lib
+        from repro_torch.data import loader, synth
+        from repro_torch.kernels.decode_utf8 import ops as dops
+        from repro_torch.kernels.fused_vocab import ops as fvops
+        from repro_torch.kernels.fused_xform import ops as fxops
+
+        counters = {"decode_scan": dops.KERNEL, "fused_genvocab": fvops.KERNEL,
+                    "fused_genvocab_slabs": fvops.KERNEL_COUNTS,
+                    "fused_transform": fxops.KERNEL, "fused_mod_dense": fxops.KERNEL_MOD_DENSE}
+        launches = dict.fromkeys(counters, 0)
+
+        def counted(fn):
+            """Run one piece of the main path, every counter at 0 before it."""
+            for k in counters.values():
+                k.launches = 0
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn()
+            self.sync()
+            seconds = time.perf_counter() - t0
+            got = {name: k.launches for name, k in counters.items()}
+            for name, n in got.items():
+                launches[name] += n
+            return out, seconds, {k: v for k, v in got.items() if v}
+
+        sch = dataclasses.replace(schema_lib.CRITEO, vocab_range=vocab_range)
+        kern = P.PipelineConfig(schema=sch, device=str(self.dev))
+        oracle = dataclasses.replace(kern, use_fused_kernel=False, use_fused_vocab=False)
+        result = {"phase": "main", "schema": tag, "vocab_range": vocab_range}
+        if not self.rehearse:
+            torch.cuda.reset_peak_memory_stats()
+        for feed in ("utf8", "binary"):
+            if feed == "utf8":
+                chunks, n_rows = data["utf8_chunks"], data["utf8_rows"]
+                stacked = np.stack(chunks)
+                sizes = [7, 1, 30, 1000, 5000]
+                payloads = list(synth.request_payloads(data["utf8_buf"], None, sizes))
+            else:
+                n_rows = data["binary_rows"]
+                stacked = loader.BinaryChunkFeed(data["binary"], MAX_ROWS).flat_chunks()
+                chunks = [{k: v[i] for k, v in stacked.items()}
+                          for i in range(len(stacked["label"]))]
+                sizes = [7, 1, 30, 1000, 5000]
+                starts = np.cumsum([0] + sizes[:-1])
+                payloads = [{k: data["binary"][k][r0:r0 + m] for k in ("label", "dense", "sparse")}
+                            for r0, m in zip(starts, sizes)]
+            pipe = P.PiperPipeline(dataclasses.replace(kern, input_format=feed))
+            pipe_o = P.PiperPipeline(dataclasses.replace(oracle, input_format=feed))
+            n = len(chunks)
+            state, s1, l1 = counted(lambda: pipe.build_state_stream(chunks))
+            vocab, s_fin, _ = counted(lambda: vocab_lib.finalize(state))
+            outs, s2, l2 = counted(lambda: list(pipe.transform_stream(vocab, chunks)))
+            state_o = pipe_o.build_state_stream(chunks)
+            expect(torch.equal(state.first_pos, state_o.first_pos),
+                   f"{tag} {feed}: loop ① state differs")
+            expect(torch.equal(state.rows_seen, state_o.rows_seen),
+                   f"{tag} {feed}: rows_seen differs")
+            self._same(outs, list(pipe_o.transform_stream(vocab_lib.finalize(state_o), chunks)),
+                       f"{tag} {feed} run_stream")
+            table = self._flat(outs)
+            del outs
+            scan, s_scan, l_scan = counted(lambda: pipe.run_scan(stacked))
+            self._same([P.flatten_processed(scan)], [table], f"{tag} {feed} run_scan vs run_stream")
+            del scan
+
+            # a few requests served with the frozen vocabulary, held to the
+            # offline table's rows
+            step = pipe.frozen_transform(vocab)
+            served, s_serve, l_serve = counted(lambda: [step(p) for p in payloads])
+            offline = {f: getattr(table, f)[table.valid] for f in ("label", "dense", "sparse")}
+            row0 = 0
+            for m, out in zip(sizes, served):
+                v = out.valid
+                expect(int(v.sum()) == m, f"{tag} {feed} serve: {int(v.sum())} rows, sent {m}")
+                for f in ("label", "sparse"):
+                    expect(torch.equal(getattr(out, f)[v], offline[f][row0:row0 + m]),
+                           f"{tag} {feed} serve: {f} differs from the offline table")
+                expect(torch.allclose(out.dense[v], offline["dense"][row0:row0 + m],
+                                      rtol=1e-6, atol=0),
+                       f"{tag} {feed} serve: dense differs from the offline table")
+                row0 += m
+            del table, offline
+            # repeats of each loop for its spread, and the device's busy
+            # share: its kernel and copy time in a profiled run over the
+            # median wall time
+            loop1 = lambda: pipe.build_state_stream(chunks)  # noqa: E731
+            loop2 = lambda: list(pipe.transform_stream(vocab, chunks))  # noqa: E731
+            rep1, rep2 = self.wall_seconds(loop1), self.wall_seconds(loop2)
+            med1, med2 = statistics.median(rep1), statistics.median(rep2)
+            busy1, busy2 = self.device_seconds(loop1), self.device_seconds(loop2)
+            result[feed] = {
+                "rows": n_rows, "chunks": n,
+                "loop1_s": s1, "loop1_repeat_s": rep1, "loop1_rows_per_s_median": n_rows / med1,
+                "finalize_s": s_fin,
+                "loop2_s": s2, "loop2_repeat_s": rep2, "loop2_rows_per_s_median": n_rows / med2,
+                "loop1_device_busy_share": None if busy1 is None else busy1 / med1,
+                "loop2_device_busy_share": None if busy2 is None else busy2 / med2,
+                "run_scan_s": s_scan, "run_scan_rows_per_s": n_rows / s_scan,
+                "loop1_launches_per_chunk": {k: v / n for k, v in l1.items()},
+                "loop2_launches_per_chunk": {k: v / n for k, v in l2.items()},
+                "run_scan_launches": l_scan,
+                "serve_requests": len(sizes), "serve_s": s_serve, "serve_launches": l_serve,
+            }
+
+        # the count plane and a top-k vocabulary, on the utf8 feed
+        chunks = data["utf8_chunks"]
+        pipe = P.PiperPipeline(dataclasses.replace(kern, track_vocab_counts=True))
+        pipe_o = P.PiperPipeline(dataclasses.replace(oracle, track_vocab_counts=True))
+        k = vocab_range // 10
+        state, s1, l1 = counted(lambda: pipe.build_state_stream(chunks))
+        vocab, _, _ = counted(lambda: vocab_lib.finalize_topk(state, k))
+        outs, s2, _ = counted(lambda: list(pipe.transform_stream(vocab, chunks)))
+        state_o = pipe_o.build_state_stream(chunks)
+        for f in ("first_pos", "counts", "rows_seen"):
+            expect(torch.equal(getattr(state, f), getattr(state_o, f)),
+                   f"{tag} counts: loop ① {f} differs")
+        vocab_o = vocab_lib.finalize_topk(state_o, k)
+        expect(torch.equal(vocab.table, vocab_o.table) and torch.equal(vocab.sizes, vocab_o.sizes),
+               f"{tag} counts: finalize_topk differs")
+        self._same(outs, list(pipe_o.transform_stream(vocab_o, chunks)),
+                   f"{tag} counts+topk run_stream")
+        result["utf8_counts_topk"] = {
+            "k": k, "loop1_s": s1, "loop1_rows_per_s": data["utf8_rows"] / s1,
+            "loop2_s": s2, "loop2_rows_per_s": data["utf8_rows"] / s2,
+            "loop1_launches_per_chunk": {k: v / len(chunks) for k, v in l1.items()},
+        }
+        if not self.rehearse:
+            result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        result["launches"] = launches
+        emit(result)
+        return launches
+
+
+def make_data(np, rows: dict) -> dict:
+    """The main path's feeds, made from fixed seeds."""
+    from repro_torch.data import synth
+
+    rows_utf8, rows_binary = rows["utf8"], rows["binary"]
+    t0 = time.perf_counter()
+    buf, _ = synth.make_dataset(synth.SynthConfig(rows=rows_utf8, seed=0))
+    chunks = list(synth.chunk_stream(buf, CHUNK_BYTES))
+    binary = synth.generate_binary(synth.SynthConfig(rows=rows_binary, seed=1))
+    binary = {k: binary[k] for k in ("label", "dense", "sparse")}
+    emit({"phase": "data", "utf8_rows": rows_utf8, "utf8_bytes": int(buf.size),
+          "utf8_chunks": len(chunks), "binary_rows": rows_binary,
+          "seconds": time.perf_counter() - t0})
+    return {"utf8_buf": buf, "utf8_chunks": chunks, "utf8_rows": rows_utf8,
+            "binary": binary, "binary_rows": rows_binary}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="kernels,golden,main")
+    ap.add_argument("--out", default=None, help="also write every record to this JSON file")
+    ap.add_argument("--rehearse", action="store_true",
+                    help="run the phases on the CPU at a tiny size; prints no result")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+
+    import numpy as np
+    import torch
+
+    if not args.rehearse and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} is missing", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+
+    t_start = time.perf_counter()
+    smoke = Smoke(torch, np, args.rehearse)
+    device = smoke.device()
+    records, main_launches = {}, None
+    rows = REHEARSAL_ROWS if args.rehearse else ROWS
+    data = make_data(np, rows) if phases & {"kernels", "main"} else None
+    if "kernels" in phases:
+        records = smoke.kernels(data)
+    if "golden" in phases:
+        smoke.golden()
+    if "main" in phases:
+        main_launches = {tag: smoke.main_path(data, tag, vr) for tag, vr in RANGES.items()}
+        if not args.rehearse:
+            for name in PATH_KERNELS:
+                expect(sum(m[name] for m in main_launches.values()) > 0,
+                       f"main path: {name} was never launched")
+
+    kernels = []
+    for key, rec in records.items():
+        name, _, tag = key.partition("@")
+        replaces, source = TPU_KERNELS[name]
+        if main_launches is None:
+            n = None
+        else:
+            n = sum(m[name] for t, m in main_launches.items() if t == tag or not tag)
+        kernels.append({
+            "name": key, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": n,
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "call_ms", "ms_from")},
+            "on_main_path": name in PATH_KERNELS, "shape": rec["shape"],
+        })
+    seconds = time.perf_counter() - t_start
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"device": device, "kernels": kernels, "seconds": seconds},
+                                  indent=1))
+    print(f"chip_smoke: all phases passed in {seconds:.1f} s", flush=True)
+    if args.rehearse:
+        print("chip_smoke: rehearsal on the CPU; no result", flush=True)
+        return 0
+    emit({"kernels": kernels})
+    print(device["nvidia_smi"], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        sys.exit(1)
