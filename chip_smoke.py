@@ -14,15 +14,19 @@ Phases, each of which passes or ends the run with a non-zero exit:
      plain version and, where one PyTorch call does comparable work, that
      call (CUDA events, warmed up), beside the least time the card could
      take (bytes over 3.35 TB/s, or operations over 67 T/s).
-  3. golden — PiperPipeline on the card over tests/goldens/fused_small.npz
-     reproduces the stored labels, ids and dense values and their digest.
-  4. main — the pipeline at CRITEO (5K) and CRITEO_1M: a utf8 feed and a
-     binary BinaryChunkFeed through run_stream, run_scan and a few requests
-     served by FrozenVocabTransform, and once with track_vocab_counts and
-     finalize_topk, each held to the same pipeline with the fused hints
-     False (the unfused chain) over the whole output, padding rows
-     included. Every launch counter is set to 0 before each of these runs
-     and read after; a kernel of the path that never launched fails the run.
+  3. golden — PiperPipeline on the card over tests/goldens/fused_small.npz,
+     and with use_fused_decode=True over decode_fused_small.npz, reproduces
+     the stored labels, ids and dense values and their digest.
+  4. main — the pipeline at CRITEO (5K) and CRITEO_1M: a utf8 feed (on the
+     decoded route, then on the bytes-in route of use_fused_decode=True) and
+     a binary BinaryChunkFeed, each through run_stream, run_scan and a few
+     requests served by FrozenVocabTransform, and once with
+     track_vocab_counts and finalize_topk, each held to the same pipeline
+     with the fused hints False (the unfused chain) over the whole output,
+     padding rows included. Every launch counter is set to 0 before each of
+     these runs and read after; a kernel of the path that never launched
+     fails the run, and so does a bytes-in chunk that launched anything but
+     one bytes-in kernel per loop.
 
 The last lines are the {"kernels": [...]} summary, the nvidia-smi name
 and power limit, and {"ok": true, "device": {...}}. Without a CUDA device,
@@ -53,10 +57,16 @@ TPU_KERNELS = {  # kernel → (replaced Pallas kernel, the port's source)
     "fused_genvocab_slabs": ("src/repro/kernels/fused_vocab/kernel.py:215", "fused_vocab.cu"),
     "fused_transform": ("src/repro/kernels/fused_xform/kernel.py:80", "fused_xform.cu"),
     "fused_mod_dense": ("src/repro/kernels/fused_xform/kernel.py:136", "fused_xform.cu"),
+    "fused_decode_genvocab": ("src/repro/kernels/fused_decode_vocab/kernel.py:122",
+                              "fused_decode_vocab.cu"),
+    "fused_decode_transform": ("src/repro/kernels/fused_decode_xform/kernel.py:124",
+                               "fused_decode_xform.cu"),
 }
-# The kernels the port's main path runs; fused_mod_dense is a measured
-# alternative route for loop ② at 1M and does not run on it.
-PATH_KERNELS = ("decode_scan", "fused_genvocab", "fused_genvocab_slabs", "fused_transform")
+# The kernels the port's main paths run (the decoded route, and the bytes-in
+# route of use_fused_decode=True); fused_mod_dense is a measured alternative
+# route for loop ② at 1M and does not run on them.
+PATH_KERNELS = ("decode_scan", "fused_genvocab", "fused_genvocab_slabs", "fused_transform",
+                "fused_decode_genvocab", "fused_decode_transform")
 RANGES = {"5K": 5000, "1M": 1_000_000}
 CHUNK_BYTES = 1 << 20
 MAX_ROWS = 1 << 14
@@ -264,6 +274,8 @@ class Smoke:
         from repro_torch.core import ops, schema as schema_lib, vocab as vocab_lib
         from repro_torch.core.uint32 import as_u32
         from repro_torch.kernels.decode_utf8 import ops as dops, ref as dref
+        from repro_torch.kernels.fused_decode_vocab import ops as fdvops, ref as fdvref
+        from repro_torch.kernels.fused_decode_xform import ops as fdxops, ref as fdxref
         from repro_torch.kernels.fused_vocab import ops as fvops, ref as fvref
         from repro_torch.kernels.fused_xform import ops as fxops, ref as fxref
 
@@ -288,13 +300,15 @@ class Smoke:
 
         buf = torch.from_numpy(data["utf8_chunks"][0]).to(dev)
         kw = decode_both(buf, MAX_ROWS, "synth 1 MiB chunk")
+        byte_chunks = [(buf, MAX_ROWS, "synth 1 MiB chunk")]
         cases = [(3000, 2048, 7), (3000, 4096, 0), (400, 512, 1), (64, 32, 40)]
         for seed, (n_rows, max_rows, truncate) in enumerate(cases):
             raw = hostile_rows(np, seed, sch.n_dense, sch.n_sparse, n_rows, truncate)
             hostile = np.zeros(len(raw) + 4096, np.uint8)
             hostile[: len(raw)] = np.frombuffer(raw, np.uint8)
-            decode_both(torch.from_numpy(hostile).to(dev), max_rows,
-                        f"hostile chunk {seed} ({n_rows} rows, max_rows {max_rows})")
+            what = f"hostile chunk {seed} ({n_rows} rows, max_rows {max_rows})"
+            byte_chunks.append((torch.from_numpy(hostile).to(dev), max_rows, what))
+            decode_both(byte_chunks[-1][0], max_rows, what)
         n = buf.numel()
         b_ms, b_by = bound(n + MAX_ROWS * (4 * sch.n_fields + 1), 12 * n)
         record("decode_scan", {
@@ -340,11 +354,11 @@ class Smoke:
                 st = fresh(int(base.rows_seen))
                 pos = vocab_lib.positions(st.rows_seen, rows, valid)
                 live = (pos < vocab_lib.NEVER)[:, None].expand(rows, n_cols)
-                touched = int(torch.unique((col_base * vr + modded)[live]).numel())
+                state_touched = int(torch.unique((col_base * vr + modded)[live]).numel())
                 # hashes and valid flags in, rows_seen in and out, each touched
                 # slot of each plane read and written once
                 planes = 2 if track else 1
-                b_ms, b_by = bound(rows * n_cols * 4 + rows + 8 + touched * 8 * planes,
+                b_ms, b_by = bound(rows * n_cols * 4 + rows + 8 + state_touched * 8 * planes,
                                    4 * rows * n_cols)
                 idx_t = modded.t().contiguous()
                 src = pos[None, :].expand_as(idx_t).contiguous()
@@ -393,31 +407,95 @@ class Smoke:
                 if lib:
                     rec["library_call"] = "torch.gather on pre-modded indices (ids only)"
                 record(f"{name}@{tag}", rec)
+
+            # the bytes-in loops ① and ②: the 1 MiB chunk and the hostile
+            # chunks, into that state (at its own offset and three rows below
+            # the ceiling) and through that vocabulary
+            fkw = dict(n_fields=sch.n_fields, hex_start=1 + sch.n_dense)
+            err = 0.0
+            for b, max_rows, what in byte_chunks:
+                for rows_seen in offsets:
+                    def fresh_state():
+                        return vocab_lib.VocabState(
+                            base.first_pos.clone(),
+                            torch.tensor(rows_seen, dtype=torch.int32, device=dev))
+
+                    got = fdvops.fused_decode_update(fresh_state(), b, max_rows=max_rows, **fkw)
+                    want = fdvref.fused_decode_genvocab(fresh_state(), b, max_rows=max_rows,
+                                                        **fkw)
+                    self.sync()
+                    where = f"fused_decode_genvocab V={vr} rows_seen={rows_seen}, {what}"
+                    expect(torch.equal(got.first_pos, want.first_pos),
+                           f"{where}: first_pos differs")
+                    expect(torch.equal(got.rows_seen, want.rows_seen),
+                           f"{where}: rows_seen differs")
+                got = fdxops.fused_decode_transform(vocab, b, max_rows=max_rows, **fkw)
+                want = fdxref.fused_decode_transform(vocab, b, max_rows=max_rows, **fkw)
+                self.sync()
+                where = f"fused_decode_transform V={vr}, {what}"
+                for i, name in ((0, "label"), (2, "ids"), (3, "valid")):
+                    expect(torch.equal(got[i], want[i]), f"{where}: {name} differs")
+                expect(torch.allclose(got[1], want[1], rtol=1e-6, atol=0),
+                       f"{where}: dense beyond rtol 1e-6")
+                err = max(err, float((got[1] - want[1]).abs().max()))
+            st = vocab_lib.VocabState(base.first_pos.clone(), base.rows_seen.clone())
+            n = buf.numel()
+            # the chunk in, rows_seen in and out, each state slot that the
+            # decoded chunk above touched read and written once
+            b_ms, b_by = bound(n + 8 + state_touched * 8, 12 * n + 4 * rows * n_cols)
+            record(f"fused_decode_genvocab@{tag}", {
+                "max_abs_err": 0,
+                **self.times(
+                    lambda: fdvops.fused_decode_update(st, buf, max_rows=MAX_ROWS, **fkw),
+                    lambda: fdvref.fused_decode_genvocab(st, buf, max_rows=MAX_ROWS, **fkw),
+                    plain_reps=5),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "shape": f"{n} B chunk, max_rows {MAX_ROWS}, into [{n_cols}, {vr}]",
+            })
+            # the chunk in, each touched table slot read once, the label,
+            # dense, ids and valid outputs written once
+            out_bytes = MAX_ROWS * (4 + 4 * n_dense + 4 * n_cols + 1)
+            b_ms, b_by = bound(n + touched * 4 + out_bytes,
+                               12 * n + rows * (3 * n_cols + 20 * n_dense))
+            record(f"fused_decode_transform@{tag}", {
+                "max_abs_err": err,
+                **self.times(
+                    lambda: fdxops.fused_decode_transform(vocab, buf, max_rows=MAX_ROWS, **fkw),
+                    lambda: fdxref.fused_decode_transform(vocab, buf, max_rows=MAX_ROWS, **fkw),
+                    plain_reps=5),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "shape": f"{n} B chunk, max_rows {MAX_ROWS}, table [{n_cols}, {vr}]",
+            })
         return records
 
     # -- phase 3 -------------------------------------------------------- #
     def golden(self) -> None:
+        """fused_small.npz on the decoded route, and decode_fused_small.npz
+        on the bytes-in route."""
         np = self.np
         from repro_torch.core import pipeline as P
         from repro_torch.data import synth
 
-        g = np.load(ROOT / "tests" / "goldens" / "fused_small.npz")
-        cb = int(g["chunk_bytes"])
-        pipe = P.PiperPipeline(P.PipelineConfig(
-            chunk_bytes=cb, max_rows_per_chunk=int(g["max_rows_per_chunk"]),
-            device=str(self.dev)))
-        outs = list(pipe.run_stream(lambda: synth.chunk_stream(g["buf"], cb)))
-        label = np.concatenate([o.label[o.valid].cpu().numpy() for o in outs])
-        dense = np.concatenate([o.dense[o.valid].cpu().numpy() for o in outs])
-        sparse = np.concatenate([o.sparse[o.valid].cpu().numpy() for o in outs])
-        expect(np.array_equal(label, g["label"]), "golden: labels differ")
-        expect(np.array_equal(sparse, g["sparse"]), "golden: sparse ids differ")
-        expect(np.allclose(dense, g["dense"], rtol=1e-6, atol=0), "golden: dense beyond rtol 1e-6")
-        h = hashlib.sha256()
-        h.update(np.ascontiguousarray(label, np.int32).tobytes())
-        h.update(np.ascontiguousarray(sparse, np.int32).tobytes())
-        expect(h.hexdigest() == str(g["digest"]), "golden: digest differs")
-        emit({"phase": "golden", "rows": int(label.shape[0]), "digest": h.hexdigest(), "ok": True})
+        for name, fused_decode in (("fused_small", None), ("decode_fused_small", True)):
+            g = np.load(ROOT / "tests" / "goldens" / f"{name}.npz")
+            cb = int(g["chunk_bytes"])
+            pipe = P.PiperPipeline(P.PipelineConfig(
+                chunk_bytes=cb, max_rows_per_chunk=int(g["max_rows_per_chunk"]),
+                use_fused_decode=fused_decode, device=str(self.dev)))
+            outs = list(pipe.run_stream(lambda: synth.chunk_stream(g["buf"], cb)))
+            label = np.concatenate([o.label[o.valid].cpu().numpy() for o in outs])
+            dense = np.concatenate([o.dense[o.valid].cpu().numpy() for o in outs])
+            sparse = np.concatenate([o.sparse[o.valid].cpu().numpy() for o in outs])
+            expect(np.array_equal(label, g["label"]), f"golden {name}: labels differ")
+            expect(np.array_equal(sparse, g["sparse"]), f"golden {name}: sparse ids differ")
+            expect(np.allclose(dense, g["dense"], rtol=1e-6, atol=0),
+                   f"golden {name}: dense beyond rtol 1e-6")
+            h = hashlib.sha256()
+            h.update(np.ascontiguousarray(label, np.int32).tobytes())
+            h.update(np.ascontiguousarray(sparse, np.int32).tobytes())
+            expect(h.hexdigest() == str(g["digest"]), f"golden {name}: digest differs")
+            emit({"phase": "golden", "golden": name, "use_fused_decode": fused_decode,
+                  "rows": int(label.shape[0]), "digest": h.hexdigest(), "ok": True})
 
     # -- phase 4 -------------------------------------------------------- #
     def _same(self, got, want, what: str) -> None:
@@ -444,12 +522,16 @@ class Smoke:
         from repro_torch.core import pipeline as P, schema as schema_lib, vocab as vocab_lib
         from repro_torch.data import loader, synth
         from repro_torch.kernels.decode_utf8 import ops as dops
+        from repro_torch.kernels.fused_decode_vocab import ops as fdvops
+        from repro_torch.kernels.fused_decode_xform import ops as fdxops
         from repro_torch.kernels.fused_vocab import ops as fvops
         from repro_torch.kernels.fused_xform import ops as fxops
 
         counters = {"decode_scan": dops.KERNEL, "fused_genvocab": fvops.KERNEL,
                     "fused_genvocab_slabs": fvops.KERNEL_COUNTS,
-                    "fused_transform": fxops.KERNEL, "fused_mod_dense": fxops.KERNEL_MOD_DENSE}
+                    "fused_transform": fxops.KERNEL, "fused_mod_dense": fxops.KERNEL_MOD_DENSE,
+                    "fused_decode_genvocab": fdvops.KERNEL,
+                    "fused_decode_transform": fdxops.KERNEL}
         launches = dict.fromkeys(counters, 0)
 
         def counted(fn):
@@ -472,7 +554,11 @@ class Smoke:
         result = {"phase": "main", "schema": tag, "vocab_range": vocab_range}
         if not self.rehearse:
             torch.cuda.reset_peak_memory_stats()
-        for feed in ("utf8", "binary"):
+        oracles = {}  # feed → the unfused chain's state and outputs
+        # the utf8 feed on the decoded route and on the bytes-in route, and
+        # the binary feed
+        for route, feed, fused_decode in (("utf8", "utf8", None), ("utf8_bytes_in", "utf8", True),
+                                          ("binary", "binary", None)):
             if feed == "utf8":
                 chunks, n_rows = data["utf8_chunks"], data["utf8_rows"]
                 stacked = np.stack(chunks)
@@ -487,23 +573,29 @@ class Smoke:
                 starts = np.cumsum([0] + sizes[:-1])
                 payloads = [{k: data["binary"][k][r0:r0 + m] for k in ("label", "dense", "sparse")}
                             for r0, m in zip(starts, sizes)]
-            pipe = P.PiperPipeline(dataclasses.replace(kern, input_format=feed))
-            pipe_o = P.PiperPipeline(dataclasses.replace(oracle, input_format=feed))
+            pipe = P.PiperPipeline(dataclasses.replace(
+                kern, input_format=feed, use_fused_decode=fused_decode))
             n = len(chunks)
             state, s1, l1 = counted(lambda: pipe.build_state_stream(chunks))
             vocab, s_fin, _ = counted(lambda: vocab_lib.finalize(state))
             outs, s2, l2 = counted(lambda: list(pipe.transform_stream(vocab, chunks)))
-            state_o = pipe_o.build_state_stream(chunks)
+            if feed not in oracles:
+                pipe_o = P.PiperPipeline(dataclasses.replace(oracle, input_format=feed))
+                state_o = pipe_o.build_state_stream(chunks)
+                oracles[feed] = (state_o, list(pipe_o.transform_stream(
+                    vocab_lib.finalize(state_o), chunks)))
+            # the decoded utf8 route keeps its oracle for the bytes-in route
+            state_o, outs_o = oracles[feed] if route == "utf8" else oracles.pop(feed)
             expect(torch.equal(state.first_pos, state_o.first_pos),
-                   f"{tag} {feed}: loop ① state differs")
+                   f"{tag} {route}: loop ① state differs")
             expect(torch.equal(state.rows_seen, state_o.rows_seen),
-                   f"{tag} {feed}: rows_seen differs")
-            self._same(outs, list(pipe_o.transform_stream(vocab_lib.finalize(state_o), chunks)),
-                       f"{tag} {feed} run_stream")
+                   f"{tag} {route}: rows_seen differs")
+            self._same(outs, outs_o, f"{tag} {route} run_stream")
             table = self._flat(outs)
-            del outs
+            del outs, outs_o
             scan, s_scan, l_scan = counted(lambda: pipe.run_scan(stacked))
-            self._same([P.flatten_processed(scan)], [table], f"{tag} {feed} run_scan vs run_stream")
+            self._same([P.flatten_processed(scan)], [table],
+                       f"{tag} {route} run_scan vs run_stream")
             del scan
 
             # a few requests served with the frozen vocabulary, held to the
@@ -514,15 +606,26 @@ class Smoke:
             row0 = 0
             for m, out in zip(sizes, served):
                 v = out.valid
-                expect(int(v.sum()) == m, f"{tag} {feed} serve: {int(v.sum())} rows, sent {m}")
+                expect(int(v.sum()) == m, f"{tag} {route} serve: {int(v.sum())} rows, sent {m}")
                 for f in ("label", "sparse"):
                     expect(torch.equal(getattr(out, f)[v], offline[f][row0:row0 + m]),
-                           f"{tag} {feed} serve: {f} differs from the offline table")
+                           f"{tag} {route} serve: {f} differs from the offline table")
                 expect(torch.allclose(out.dense[v], offline["dense"][row0:row0 + m],
                                       rtol=1e-6, atol=0),
-                       f"{tag} {feed} serve: dense differs from the offline table")
+                       f"{tag} {route} serve: dense differs from the offline table")
                 row0 += m
             del table, offline
+            if fused_decode and not self.rehearse:
+                # one bytes-in kernel per loop per chunk (and per request),
+                # and nothing else: no decode, no decoded-input kernel
+                for what, got, want in (
+                    ("loop ①", l1, {"fused_decode_genvocab": n}),
+                    ("loop ②", l2, {"fused_decode_transform": n}),
+                    ("run_scan", l_scan, {"fused_decode_genvocab": n,
+                                          "fused_decode_transform": n}),
+                    ("serve", l_serve, {"fused_decode_transform": len(sizes)}),
+                ):
+                    expect(got == want, f"{tag} {route} {what}: launched {got}, expected {want}")
             # repeats of each loop for its spread, and the device's busy
             # share: its kernel and copy time in a profiled run over the
             # median wall time
@@ -531,7 +634,7 @@ class Smoke:
             rep1, rep2 = self.wall_seconds(loop1), self.wall_seconds(loop2)
             med1, med2 = statistics.median(rep1), statistics.median(rep2)
             busy1, busy2 = self.device_seconds(loop1), self.device_seconds(loop2)
-            result[feed] = {
+            result[route] = {
                 "rows": n_rows, "chunks": n,
                 "loop1_s": s1, "loop1_repeat_s": rep1, "loop1_rows_per_s_median": n_rows / med1,
                 "finalize_s": s_fin,

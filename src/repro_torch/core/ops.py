@@ -3,7 +3,10 @@
 Counterpart of ``repro/core/ops.py``. Each operator is a plain function on
 tensors, on whatever device its input lies. ``fused_transform`` runs the
 whole loop-② chain and ``fused_vocab_update`` the whole loop-① chain as
-one kernel launch (kernels/fused_xform, kernels/fused_vocab); with
+one kernel launch (kernels/fused_xform, kernels/fused_vocab);
+``fused_decode_transform`` and ``fused_decode_vocab_update`` run each loop
+from raw UTF-8 bytes, decode included, as one launch
+(kernels/fused_decode_xform, kernels/fused_decode_vocab). With
 ``use_kernel=False`` the unfused operators below compose instead — the
 differential oracle. ``Decode`` and ``FillMissing`` live in
 kernels/decode_utf8.
@@ -114,3 +117,71 @@ def fused_vocab_update(
         return fv_ops.fused_update(state, sparse, valid)
     modded = positive_modulus(sparse, int(state.first_pos.shape[1]))
     return vocab_lib.update(state, modded, valid)
+
+
+def fused_decode_transform(
+    vocab: vocab_lib.Vocabulary,
+    byte_buf: torch.Tensor,
+    *,
+    n_fields: int,
+    n_dense: int,
+    n_sparse: int,
+    max_rows: int,
+    use_kernel: bool = True,
+):
+    """The whole loop ② — Decode → Modulus → ApplyVocab ∥ Neg2Zero →
+    Logarithm — from raw UTF-8 bytes.
+
+    With ``use_kernel`` it is one launch of kernels/fused_decode_xform (the
+    plain version for a CPU buffer); without, that plain version: the plain
+    decode and the unfused operators. Labels and ids are bit-identical and
+    dense values within rtol 1e-6 either way, padding rows included.
+
+    byte_buf uint8 [B] — whole rows + zero padding, any length.
+    → (label int32 [max_rows], dense f32 [max_rows, n_dense],
+       ids int32 [max_rows, n_sparse], valid bool [max_rows]).
+    """
+    if use_kernel:
+        from repro_torch.kernels.fused_decode_xform import ops as fdx_ops
+
+        return fdx_ops.fused_decode_transform(
+            vocab, byte_buf, n_fields=n_fields, hex_start=1 + n_dense, max_rows=max_rows
+        )
+    from repro_torch.kernels.fused_decode_xform import ref as fdx_ref
+
+    return fdx_ref.fused_decode_transform(
+        vocab, byte_buf, n_fields=n_fields, hex_start=1 + n_dense, max_rows=max_rows
+    )
+
+
+def fused_decode_vocab_update(
+    state: vocab_lib.VocabState,
+    byte_buf: torch.Tensor,
+    *,
+    n_fields: int,
+    n_dense: int,
+    n_sparse: int,
+    max_rows: int,
+    use_kernel: bool = True,
+) -> vocab_lib.VocabState:
+    """The whole loop ① — Decode → Modulus → GenVocab scatter-min — from raw
+    UTF-8 bytes.
+
+    With ``use_kernel`` it is one launch of kernels/fused_decode_vocab,
+    which on the card **updates ``state.first_pos`` in place**; thread the
+    returned state through. Without, its plain version (the plain decode
+    and the unfused chain) returns a new state. The state is bit-identical
+    either way. ``n_sparse`` is ``n_fields - 1 - n_dense``; it is taken for
+    the reference's signature.
+    """
+    if use_kernel:
+        from repro_torch.kernels.fused_decode_vocab import ops as fdv_ops
+
+        return fdv_ops.fused_decode_update(
+            state, byte_buf, n_fields=n_fields, hex_start=1 + n_dense, max_rows=max_rows
+        )
+    from repro_torch.kernels.fused_decode_vocab import ref as fdv_ref
+
+    return fdv_ref.fused_decode_genvocab(
+        state, byte_buf, n_fields=n_fields, hex_start=1 + n_dense, max_rows=max_rows
+    )

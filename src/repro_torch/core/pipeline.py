@@ -16,10 +16,13 @@ Decode(+FillMissing) → [sparse: Modulus → GenVocab → ApplyVocab] ∥
 ``vocab_step`` and ``transform`` run it for that plan. The plan IR and its
 compiler are not ported yet (ROADMAP queue 1 item 3).
 
-On ``device="cuda"`` decode always runs the decode kernel, and the fused
-hints (None) resolve to the loop-① and loop-② kernels; ``False`` selects
-the unfused operator chain, the differential oracle. On ``device="cpu"``
-every stage runs its plain PyTorch version.
+On ``device="cuda"`` decode runs the decode kernel, and the fused hints
+(None) resolve to the loop-① and loop-② kernels; ``False`` selects the
+unfused operator chain, the differential oracle. With
+``use_fused_decode=True`` a utf8 feed takes the bytes-in route instead:
+each loop is one kernel launch from raw bytes, and the decoded field
+table is never stored. On ``device="cpu"`` every stage runs its plain
+PyTorch version.
 """
 
 from __future__ import annotations
@@ -38,8 +41,7 @@ from repro_torch.kernels.decode_utf8 import ops as decode_ops
 # Config fields of the reference that this slice keeps only at their
 # defaults: field → (default, where the ROADMAP lists the work).
 _NOT_PORTED = {
-    "use_kernels": (False, "the unfused per-op kernels, ROADMAP queue 2 items 8-10"),
-    "use_fused_decode": (None, "the bytes-in kernels, ROADMAP queue 2 items 6-7 (slice 2)"),
+    "use_kernels": (False, "the unfused per-op kernels, ROADMAP queue 2 items 8-10 (slice 3)"),
     "vocab_slab_range": (None, "the plan compiler's route metadata, ROADMAP queue 1 item 3"),
     "plan": (None, "the plan IR and its compiler, ROADMAP queue 1 item 3"),
 }
@@ -62,6 +64,14 @@ class PipelineConfig:
     # same resolution as use_fused_kernel. The state is bit-identical
     # either way.
     use_fused_vocab: bool | None = None
+    # Each loop straight from raw UTF-8 bytes, decode included, as one
+    # kernel launch per chunk (kernels/fused_decode_vocab, _xform); utf8
+    # feeds only. None → off, as in the reference; True opts in. Unlike the
+    # two hints above, True on "cpu" is allowed and runs the route with the
+    # plain versions, as the reference's own tests run it on the CPU, so the
+    # routing is tested off the card. Loop ① stays on decode + the loop-①
+    # kernel when track_vocab_counts is on (the bytes-in kernel carries no
+    # count plane); loop ② needs a dense and a sparse column.
     use_fused_decode: bool | None = None
     # Carry the occurrence-count plane beside first_pos (VocabState.counts),
     # needed by vocab.finalize_topk / finalize_min_count.
@@ -113,6 +123,11 @@ class PipelineConfig:
             return self.torch_device.type == "cuda"
         return self.use_fused_vocab
 
+    @property
+    def fused_decode_enabled(self) -> bool:
+        """The resolved ``use_fused_decode`` hint (None → off)."""
+        return bool(self.use_fused_decode)
+
 
 class PiperPipeline:
     """Two-loop columnar preprocessing engine."""
@@ -124,6 +139,22 @@ class PiperPipeline:
         self._hex_table = self.schema.field_is_hex()  # host-side: no sync per chunk
         self._fused = config.fused_enabled
         self._fused_vocab = config.fused_vocab_enabled
+        # Bytes-in routing, static per engine (the reference's admissibility
+        # rules for its default plan): a utf8 feed with the hint on, a sparse
+        # column, and for loop ① no count plane, for loop ② a dense column.
+        bytes_in = (
+            config.input_format == "utf8"
+            and config.fused_decode_enabled
+            and self.schema.n_sparse > 0
+        )
+        self._bytes_vocab = bytes_in and not config.track_vocab_counts
+        self._bytes_xform = bytes_in and self.schema.n_dense > 0
+        self._bytes_kw = dict(
+            n_fields=self.schema.n_fields,
+            n_dense=self.schema.n_dense,
+            n_sparse=self.schema.n_sparse,
+            max_rows=config.max_rows_per_chunk,
+        )
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
@@ -191,8 +222,11 @@ class PiperPipeline:
 
     def vocab_step(self, state: vocab_lib.VocabState, chunk) -> vocab_lib.VocabState:
         """Absorb one chunk: every sparse column's uint32 Modulus →
-        GenVocab scatter-min, as one kernel launch when the hint is on.
-        The fused kernel updates ``state`` in place."""
+        GenVocab scatter-min, as one kernel launch when the hint is on —
+        decode included on the bytes-in route. The fused kernels update
+        ``state`` in place."""
+        if self._bytes_vocab:
+            return ops.fused_decode_vocab_update(state, self._tensor(chunk), **self._bytes_kw)
         batch = self._as_batch(chunk)
         return ops.fused_vocab_update(
             state, batch.sparse, batch.valid, use_kernel=self._fused_vocab
@@ -241,7 +275,13 @@ class PiperPipeline:
         self, vocabulary: vocab_lib.Vocabulary, chunk
     ) -> schema_lib.ProcessedBatch:
         """Modulus → ApplyVocab ∥ Neg2Zero → Logarithm on one chunk, as one
-        kernel launch when the hint is on."""
+        kernel launch when the hint is on — decode included on the bytes-in
+        route."""
+        if self._bytes_xform:
+            label, dense, ids, valid = ops.fused_decode_transform(
+                vocabulary, self._tensor(chunk), **self._bytes_kw
+            )
+            return schema_lib.ProcessedBatch(label=label, dense=dense, sparse=ids, valid=valid)
         batch = self._as_batch(chunk)
         ids, dense = ops.fused_transform(
             vocabulary, batch.sparse, batch.dense, use_kernel=self._fused
@@ -292,7 +332,8 @@ class FrozenVocabTransform:
     """Loop ② factored out of the two-loop engine: frozen-vocab serving.
 
     Wraps a finalized :class:`vocab.Vocabulary` plus the per-chunk chain
-    (Decode → Modulus → ApplyVocab ∥ Neg2Zero → Logarithm) behind one
+    (Decode → Modulus → ApplyVocab ∥ Neg2Zero → Logarithm; one bytes-in
+    launch per request when ``use_fused_decode`` is on) behind one
     callable, so a request stream of any length is served with bounded
     state. The vocabulary can be swapped between calls.
     """

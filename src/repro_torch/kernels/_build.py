@@ -24,7 +24,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_utf8", "fused_vocab", "fused_xform")
+SOURCES = (
+    "decode_utf8", "fused_vocab", "fused_xform", "fused_decode_vocab", "fused_decode_xform",
+)
 # No --use_fast_math: it would replace log1pf, and the dense outputs are
 # held to rtol 1e-6.
 NVCC_FLAGS = (
@@ -161,3 +163,25 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None, device=Non
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def decode_scratch(source: str, n: int, cap: int, device: torch.device) -> torch.Tensor:
+    """The int32 scratch of one call of a kernel that runs the shared decode
+    passes (csrc/decode_passes.cuh) over ``n`` bytes, keeping the positions
+    of the first ``cap`` delimiters."""
+    fn = library(source).decode_scratch_ints
+    fn.argtypes = [INT64, INT64]
+    fn.restype = INT64
+    return torch.empty(fn(n, cap), dtype=torch.int32, device=device)
+
+
+def check_bytes(byte_buf: torch.Tensor) -> int:
+    """Raise unless ``byte_buf`` is a contiguous 1-D uint8 CUDA tensor of
+    fewer than 2**31 bytes; return its length."""
+    check(byte_buf, "byte_buf", torch.uint8)
+    if byte_buf.dim() != 1:
+        raise ValueError(f"byte_buf: expected 1-D, got shape {tuple(byte_buf.shape)}")
+    n = int(byte_buf.shape[0])
+    if n >= 2**31:
+        raise ValueError(f"byte_buf: {n} bytes; the kernel takes fewer than 2**31")
+    return n

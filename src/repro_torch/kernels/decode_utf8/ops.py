@@ -68,21 +68,11 @@ def decode(
             n_dense=n_dense,
             n_sparse=n_sparse,
         )
-    _build.check(byte_buf, "byte_buf", torch.uint8)
-    if byte_buf.dim() != 1:
-        raise ValueError(f"byte_buf: expected 1-D, got shape {tuple(byte_buf.shape)}")
-    n = int(byte_buf.shape[0])
-    if n >= 2**31:
-        raise ValueError(f"byte_buf: {n} bytes; the kernel takes fewer than 2**31")
+    n = _build.check_bytes(byte_buf)
     if n_fields != 1 + n_dense + n_sparse:
         raise ValueError(f"n_fields={n_fields} != 1 + {n_dense} + {n_sparse}")
     dev = byte_buf.device
-    lib = _build.library("decode_utf8")
-    lib.decode_utf8_scratch_ints.argtypes = [_build.INT64, _build.INT64]
-    lib.decode_utf8_scratch_ints.restype = _build.INT64
-    scratch = torch.empty(
-        lib.decode_utf8_scratch_ints(n, max_rows * n_fields), dtype=torch.int32, device=dev
-    )
+    scratch = _build.decode_scratch("decode_utf8", n, max_rows * n_fields, dev)
     label = torch.empty(max_rows, dtype=torch.int32, device=dev)
     dense = torch.empty((max_rows, n_dense), dtype=torch.int32, device=dev)
     sparse = torch.empty((max_rows, n_sparse), dtype=torch.int32, device=dev)

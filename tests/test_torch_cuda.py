@@ -20,6 +20,10 @@ from repro_torch.core import vocab as tvocab
 from repro_torch.data import synth
 from repro_torch.kernels.decode_utf8 import ops as dops
 from repro_torch.kernels.decode_utf8 import ref as dref
+from repro_torch.kernels.fused_decode_vocab import ops as fdvops
+from repro_torch.kernels.fused_decode_vocab import ref as fdvref
+from repro_torch.kernels.fused_decode_xform import ops as fdxops
+from repro_torch.kernels.fused_decode_xform import ref as fdxref
 from repro_torch.kernels.fused_vocab import ops as fvops
 from repro_torch.kernels.fused_vocab import ref as fvref
 from repro_torch.kernels.fused_xform import ops as fxops
@@ -113,6 +117,108 @@ def test_pipeline_on_card_matches_cpu(cuda, criteo_small, fmt):
     gpu = list(P.PiperPipeline(P.PipelineConfig(**kw)).run_stream(lambda: iter(chunks)))
     cpu = list(P.PiperPipeline(P.PipelineConfig(device="cpu", **kw))
                .run_stream(lambda: iter(chunks)))
+    for g, c in zip(gpu, cpu):
+        for f in ("label", "sparse", "valid"):
+            assert torch.equal(getattr(g, f).cpu(), getattr(c, f))
+        torch.testing.assert_close(g.dense.cpu(), c.dense, rtol=1e-6, atol=0)
+
+
+def _byte_chunks(criteo_small, cuda):
+    """Two synth chunks and six hostile ones (every hostile class, fields
+    longer than the 4 KiB tile, truncated final rows), at full width."""
+    bufs = [c for c in synth.chunk_stream(criteo_small[0], 4096)][:2]
+    bufs += [_hostile(s, 30, s % 3) for s in range(6)]
+    return [torch.from_numpy(b).to(cuda) for b in bufs]
+
+
+@pytest.mark.parametrize("vocab_range", [97, 5000, 1_000_000])
+@pytest.mark.parametrize("rows_seen", [0, tvocab.NEVER - 3], ids=["start", "ceiling"])
+def test_fused_decode_vocab_kernel_matches_plain(cuda, criteo_small, vocab_range, rows_seen):
+    """Bytes-in loop ①: first_pos and rows_seen bit for bit, into a state
+    with some history, with max_rows below and above the chunks' rows."""
+    rng = np.random.default_rng(vocab_range)
+    history = torch.from_numpy(np.where(
+        rng.random((26, vocab_range)) < 0.2, rng.integers(0, 50, (26, vocab_range)),
+        tvocab.NEVER).astype(np.int32)).to(cuda)
+    for max_rows in (8, 64):
+        for buf in _byte_chunks(criteo_small, cuda):
+            def fresh():
+                return tvocab.VocabState(
+                    history.clone(), torch.tensor(rows_seen, dtype=torch.int32, device=cuda))
+
+            kw = dict(n_fields=40, hex_start=14, max_rows=max_rows)
+            got = fdvops.fused_decode_update(fresh(), buf, **kw)
+            want = fdvref.fused_decode_genvocab(fresh(), buf, **kw)
+            assert torch.equal(got.first_pos, want.first_pos)
+            assert torch.equal(got.rows_seen, want.rows_seen)
+
+
+@pytest.mark.parametrize("vocab_range", [97, 5000, 1_000_000])
+def test_fused_decode_xform_kernel_matches_plain(cuda, criteo_small, vocab_range):
+    """Bytes-in loop ②: label, ids and valid bit for bit, dense at rtol
+    1e-6, on every row, padding included."""
+    rng = np.random.default_rng(vocab_range)
+    table = torch.from_numpy(rng.integers(0, 1000, size=(26, vocab_range)).astype(np.int32))
+    vocab = tvocab.Vocabulary(table=table.to(cuda), sizes=torch.zeros(26, dtype=torch.int32))
+    for max_rows in (8, 64):
+        for buf in _byte_chunks(criteo_small, cuda):
+            kw = dict(n_fields=40, hex_start=14, max_rows=max_rows)
+            got = fdxops.fused_decode_transform(vocab, buf, **kw)
+            want = fdxref.fused_decode_transform(vocab, buf, **kw)
+            for name, g, w in zip(("label", "dense", "ids", "valid"), got, want):
+                if name == "dense":
+                    torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+                else:
+                    assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("n_dense,n_sparse", [(0, 3), (3, 0), (2, 3)])
+def test_fused_decode_degenerate_routes_match_plain(cuda, n_dense, n_sparse):
+    """No dense or no sparse column, and an empty buffer: the wrappers'
+    decode + decoded-input routes on the card give the plain results."""
+    n_fields = 1 + n_dense + n_sparse
+    rng = np.random.default_rng(n_fields)
+    rows = ["\t".join([str(rng.integers(0, 2))]
+                      + [str(rng.integers(-9, 999)) if rng.random() < 0.8 else ""
+                         for _ in range(n_dense)]
+                      + [f"{rng.integers(0, 2**32):x}" if rng.random() < 0.8 else ""
+                         for _ in range(n_sparse)]) for _ in range(20)]
+    raw = ("\n".join(rows) + "\n").encode()[:-5]  # the last row truncated
+    bufs = [torch.from_numpy(synth.pad_bytes(raw, 64)).to(cuda),
+            torch.zeros(0, dtype=torch.uint8, device=cuda)]
+    vocab = tvocab.Vocabulary(
+        table=torch.arange(n_sparse * 31, dtype=torch.int32, device=cuda).reshape(n_sparse, 31),
+        sizes=torch.zeros(n_sparse, dtype=torch.int32))
+    kw = dict(n_fields=n_fields, hex_start=1 + n_dense, max_rows=16)
+    for buf in bufs:
+        got = fdvops.fused_decode_update(tvocab.VocabState.init(n_sparse, 31, device=cuda),
+                                         buf, **kw)
+        want = fdvref.fused_decode_genvocab(tvocab.VocabState.init(n_sparse, 31, device=cuda),
+                                            buf, **kw)
+        assert torch.equal(got.first_pos, want.first_pos)
+        assert torch.equal(got.rows_seen, want.rows_seen)
+        for g, w in zip(fdxops.fused_decode_transform(vocab, buf, **kw),
+                        fdxref.fused_decode_transform(vocab, buf, **kw)):
+            assert torch.equal(g, w)
+
+
+def test_bytes_in_pipeline_on_card_matches_cpu(cuda, criteo_small):
+    """use_fused_decode=True on the card: one launch of each bytes-in kernel
+    per chunk and no decode, and the same results as on the CPU."""
+    buf = criteo_small[0]
+    kw = dict(chunk_bytes=32768, max_rows_per_chunk=256, use_fused_decode=True)
+    chunks = list(synth.chunk_stream(buf, 32768))
+    pipe = P.PiperPipeline(P.PipelineConfig(**kw))
+    for k in (dops.KERNEL, fdvops.KERNEL, fdxops.KERNEL):
+        k.launches = 0
+    gpu = list(pipe.run_stream(lambda: iter(chunks)))
+    assert (dops.KERNEL.launches, fdvops.KERNEL.launches, fdxops.KERNEL.launches) == (
+        0, len(chunks), len(chunks))
+    cpu = list(P.PiperPipeline(P.PipelineConfig(device="cpu", **kw))
+               .run_stream(lambda: iter(chunks)))
+    scan = P.flatten_processed(pipe.run_scan(np.stack(chunks)))
+    for f in ("label", "sparse", "valid"):
+        assert torch.equal(getattr(scan, f), torch.cat([getattr(g, f) for g in gpu]))
     for g, c in zip(gpu, cpu):
         for f in ("label", "sparse", "valid"):
             assert torch.equal(getattr(g, f).cpu(), getattr(c, f))

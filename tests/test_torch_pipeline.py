@@ -148,8 +148,7 @@ def test_build_state_stream_guards_ceiling(criteo_small, monkeypatch):
 
 @pytest.mark.parametrize(
     "field,value",
-    [("use_kernels", True), ("use_fused_decode", True), ("use_fused_decode", False),
-     ("vocab_slab_range", 128), ("plan", object())],
+    [("use_kernels", True), ("vocab_slab_range", 128), ("plan", object())],
 )
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
