@@ -61,12 +61,17 @@ TPU_KERNELS = {  # kernel → (replaced Pallas kernel, the port's source)
                               "fused_decode_vocab.cu"),
     "fused_decode_transform": ("src/repro/kernels/fused_decode_xform/kernel.py:124",
                                "fused_decode_xform.cu"),
+    "genvocab": ("src/repro/kernels/vocab/kernel.py:83", "vocab.cu"),
+    "apply_vocab": ("src/repro/kernels/vocab/kernel.py:40", "vocab.cu"),
+    "dense_transform": ("src/repro/kernels/dense_xform/kernel.py:25", "dense_xform.cu"),
 }
-# The kernels the port's main paths run (the decoded route, and the bytes-in
-# route of use_fused_decode=True); fused_mod_dense is a measured alternative
-# route for loop ② at 1M and does not run on them.
+# The kernels the port's main paths run (the decoded route, the bytes-in
+# route of use_fused_decode=True, and the crossed plan's use_kernels route);
+# fused_mod_dense is a measured alternative route for loop ② at 1M and does
+# not run on them.
 PATH_KERNELS = ("decode_scan", "fused_genvocab", "fused_genvocab_slabs", "fused_transform",
-                "fused_decode_genvocab", "fused_decode_transform")
+                "fused_decode_genvocab", "fused_decode_transform", "genvocab", "apply_vocab",
+                "dense_transform")
 RANGES = {"5K": 5000, "1M": 1_000_000}
 CHUNK_BYTES = 1 << 20
 MAX_ROWS = 1 << 14
@@ -79,7 +84,11 @@ class SmokeFailure(Exception):
     pass
 
 
+RECORDS = []  # every line emit() printed, for --out
+
+
 def emit(obj) -> None:
+    RECORDS.append(obj)
     print(json.dumps(obj), flush=True)
 
 
@@ -177,14 +186,17 @@ class Smoke:
         end.record()
         end.synchronize()
         call_ms = start.elapsed_time(end) / reps
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        device_us = sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-        )
+        for _ in range(3):  # now and then a trace comes back with no device events
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            device_us = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+            )
+            if device_us:
+                break
         return {"device_ms": device_us / 1e3 / reps if device_us else None, "call_ms": call_ms}
 
     def times(self, kernel, plain, library=None, plain_reps: int = 20) -> dict:
@@ -273,11 +285,14 @@ class Smoke:
         torch, np, dev = self.torch, self.np, self.dev
         from repro_torch.core import ops, schema as schema_lib, vocab as vocab_lib
         from repro_torch.core.uint32 import as_u32
+        from repro_torch.kernels import _build
         from repro_torch.kernels.decode_utf8 import ops as dops, ref as dref
+        from repro_torch.kernels.dense_xform import ops as dxops, ref as dxref
         from repro_torch.kernels.fused_decode_vocab import ops as fdvops, ref as fdvref
         from repro_torch.kernels.fused_decode_xform import ops as fdxops, ref as fdxref
         from repro_torch.kernels.fused_vocab import ops as fvops, ref as fvref
         from repro_torch.kernels.fused_xform import ops as fxops, ref as fxref
+        from repro_torch.kernels.vocab import ops as vops, ref as vref
 
         sch = schema_lib.CRITEO
         hex_table = sch.field_is_hex()
@@ -355,11 +370,14 @@ class Smoke:
                 pos = vocab_lib.positions(st.rows_seen, rows, valid)
                 live = (pos < vocab_lib.NEVER)[:, None].expand(rows, n_cols)
                 state_touched = int(torch.unique((col_base * vr + modded)[live]).numel())
-                # hashes and valid flags in, rows_seen in and out, each touched
-                # slot of each plane read and written once
+                # valid flags in, the live rows' hashes in (the kernel skips an
+                # invalid row before it reads them), rows_seen in and out, each
+                # touched slot of each plane read and written once
                 planes = 2 if track else 1
-                b_ms, b_by = bound(rows * n_cols * 4 + rows + 8 + state_touched * 8 * planes,
-                                   4 * rows * n_cols)
+                live_rows = int(live.any(1).sum())
+                b_ms, b_by = bound(
+                    live_rows * n_cols * 4 + rows + 8 + state_touched * 8 * planes,
+                    4 * live_rows * n_cols)
                 idx_t = modded.t().contiguous()
                 src = pos[None, :].expand_as(idx_t).contiguous()
                 record(f"{name}@{tag}", {
@@ -466,35 +484,146 @@ class Smoke:
                 "bound_ms": b_ms, "bound_by": b_by,
                 "shape": f"{n} B chunk, max_rows {MAX_ROWS}, table [{n_cols}, {vr}]",
             })
+
+            # the per-op kernels of the crossed plan's use_kernels route, on
+            # its 27 vocab columns (the 26 sparse and the cross of columns 0
+            # and 1): the chunk's modded values (with repeated keys), its
+            # positions (NEVER on the padding rows), into a state with some
+            # history (at its own offset and three rows below the ceiling)
+            def crossed(sp):
+                return torch.cat([sp, ops.hash_cross(sp[:, 0], sp[:, 1])[:, None]], dim=1)
+
+            modded27 = ops.positive_modulus(crossed(sparse), vr)
+            n27 = modded27.shape[1]
+            mt = modded27.t()
+            base27 = vocab_lib.VocabState.init(n27, vr, track_counts=True, device=dev)
+            for c in data["utf8_chunks"][1:3]:
+                b = dops.decode(torch.from_numpy(c).to(dev), hex_table, **kw)
+                base27 = ops.fused_vocab_update(base27, crossed(b[2]), b[3], use_kernel=False)
+            for track in (False, True):
+                for rows_seen in offsets:
+                    def fresh27():
+                        return vocab_lib.VocabState(
+                            base27.first_pos.clone(),
+                            torch.tensor(rows_seen, dtype=torch.int32, device=dev),
+                            base27.counts.clone() if track else None)
+
+                    got = vops.genvocab_update(fresh27(), modded27, valid)
+                    want = fresh27()
+                    pos = vocab_lib.positions(want.rows_seen, rows, valid)
+                    want_seen = vocab_lib.advance_rows_seen(
+                        want.rows_seen, valid.to(torch.int32).sum())
+                    self.sync()
+                    what = f"genvocab V={vr} counts={track} rows_seen={rows_seen}"
+                    expect(torch.equal(got.first_pos, vref.genvocab(want.first_pos, mt, pos)),
+                           f"{what}: first_pos differs")
+                    expect(torch.equal(got.rows_seen, want_seen), f"{what}: rows_seen differs")
+                    if track:
+                        expect(torch.equal(got.counts, vref.genvocab_counts(want.counts, mt, pos)),
+                               f"{what}: counts differ")
+            st = vocab_lib.VocabState(base27.first_pos.clone(), base27.rows_seen.clone())
+            pos = vocab_lib.positions(st.rows_seen, rows, valid)
+            slots27 = torch.arange(n27, device=dev)[None, :] * vr + modded27
+            live = (pos < vocab_lib.NEVER)[:, None].expand(rows, n27)
+            touched27 = int(torch.unique(slots27[live]).numel())
+            idx_t = mt.to(torch.int64).contiguous()
+            src = pos[None, :].expand_as(idx_t).contiguous()
+            p = _build.ptr
+
+            def genvocab_kernel():
+                """The kernel alone, on the positions made above (the
+                wrapper also computes them and the new rows_seen)."""
+                if self.rehearse:
+                    return vops.genvocab_update(st, modded27, valid)
+                vops.KERNEL_GENVOCAB.launch(
+                    dev, p(st.first_pos), None, p(modded27), p(pos), rows, n27, vr)
+
+            wrapper = self.time_ms(lambda: vops.genvocab_update(st, modded27, valid))
+            # positions in, the live rows' modded values in (the kernel skips a
+            # NEVER row before it reads them), each touched state slot read
+            # and written once; a compare and a min per live cell
+            live_rows = int(live.any(1).sum())
+            b_ms, b_by = bound(live_rows * n27 * 4 + rows * 4 + touched27 * 8,
+                               2 * live_rows * n27)
+            record(f"genvocab@{tag}", {
+                "max_abs_err": 0,
+                **self.times(genvocab_kernel, lambda: vref.genvocab(st.first_pos, mt, pos),
+                             lambda: st.first_pos.scatter_reduce_(1, idx_t, src, reduce="amin")),
+                "wrapper_ms": wrapper["device_ms"], "wrapper_call_ms": wrapper["call_ms"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_call": "Tensor.scatter_reduce_(amin) on the transposed int64 indices",
+                "shape": f"modded [{rows}, {n27}] into [{n27}, {vr}]",
+            })
+            vocab27 = vocab_lib.finalize(base27)
+            ids_k = vops.apply_vocab(vocab27.table, modded27)
+            self.sync()
+            expect(torch.equal(ids_k, vref.apply_vocab(vocab27.table, mt).t()),
+                   f"apply_vocab V={vr}: ids differ")
+            # modded values in, ids out, each touched table slot read once
+            b_ms, b_by = bound(rows * n27 * 8 + int(torch.unique(slots27).numel()) * 4,
+                               2 * rows * n27)
+            record(f"apply_vocab@{tag}", {
+                "max_abs_err": 0,
+                **self.times(lambda: vops.apply_vocab(vocab27.table, modded27),
+                             lambda: vref.apply_vocab(vocab27.table, mt).t().contiguous(),
+                             lambda: torch.gather(vocab27.table, 1, idx_t)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_call": "torch.gather on the transposed int64 indices (the same function)",
+                "shape": f"modded [{rows}, {n27}], table [{n27}, {vr}]",
+            })
+
+        # the crossed plan's canonical dense group (dense columns 1-12 of the
+        # chunk), with int32 extremes, and the same values as f32
+        d12 = dense[:, 1:].clone()
+        d12[0, :6] = torch.tensor([-(2**31), -1, 0, 1, 2**24 + 1, 2**31 - 1], dtype=torch.int32)
+        err = 0.0
+        for x in (d12, d12.to(torch.float32)):
+            got, want = dxops.dense_transform(x), dxref.dense_transform(x)
+            self.sync()
+            expect(torch.allclose(got, want, rtol=1e-6, atol=0),
+                   f"dense_transform {x.dtype}: beyond rtol 1e-6")
+            err = max(err, float((got - want).abs().max()))
+        n = d12.numel()
+        b_ms, b_by = bound(n * 8, 20 * n)
+        record("dense_transform", {
+            "max_abs_err": err,
+            **self.times(lambda: dxops.dense_transform(d12), lambda: dxref.dense_transform(d12)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"int32 [{d12.shape[0]}, {d12.shape[1]}]",
+        })
         return records
 
     # -- phase 3 -------------------------------------------------------- #
     def golden(self) -> None:
-        """fused_small.npz on the decoded route, and decode_fused_small.npz
-        on the bytes-in route."""
+        """fused_small.npz on the decoded route and on the use_kernels route
+        (the fused hints off), and decode_fused_small.npz on the bytes-in
+        route."""
         np = self.np
         from repro_torch.core import pipeline as P
         from repro_torch.data import synth
 
-        for name, fused_decode in (("fused_small", None), ("decode_fused_small", True)):
+        unfused_kernels = {"use_kernels": True, "use_fused_kernel": False,
+                           "use_fused_vocab": False}
+        for name, route in (("fused_small", {}), ("fused_small", unfused_kernels),
+                            ("decode_fused_small", {"use_fused_decode": True})):
             g = np.load(ROOT / "tests" / "goldens" / f"{name}.npz")
             cb = int(g["chunk_bytes"])
             pipe = P.PiperPipeline(P.PipelineConfig(
                 chunk_bytes=cb, max_rows_per_chunk=int(g["max_rows_per_chunk"]),
-                use_fused_decode=fused_decode, device=str(self.dev)))
+                device=str(self.dev), **route))
             outs = list(pipe.run_stream(lambda: synth.chunk_stream(g["buf"], cb)))
             label = np.concatenate([o.label[o.valid].cpu().numpy() for o in outs])
             dense = np.concatenate([o.dense[o.valid].cpu().numpy() for o in outs])
             sparse = np.concatenate([o.sparse[o.valid].cpu().numpy() for o in outs])
-            expect(np.array_equal(label, g["label"]), f"golden {name}: labels differ")
-            expect(np.array_equal(sparse, g["sparse"]), f"golden {name}: sparse ids differ")
+            expect(np.array_equal(label, g["label"]), f"golden {name} {route}: labels differ")
+            expect(np.array_equal(sparse, g["sparse"]), f"golden {name} {route}: sparse ids differ")
             expect(np.allclose(dense, g["dense"], rtol=1e-6, atol=0),
-                   f"golden {name}: dense beyond rtol 1e-6")
+                   f"golden {name} {route}: dense beyond rtol 1e-6")
             h = hashlib.sha256()
             h.update(np.ascontiguousarray(label, np.int32).tobytes())
             h.update(np.ascontiguousarray(sparse, np.int32).tobytes())
-            expect(h.hexdigest() == str(g["digest"]), f"golden {name}: digest differs")
-            emit({"phase": "golden", "golden": name, "use_fused_decode": fused_decode,
+            expect(h.hexdigest() == str(g["digest"]), f"golden {name} {route}: digest differs")
+            emit({"phase": "golden", "golden": name, "route": route,
                   "rows": int(label.shape[0]), "digest": h.hexdigest(), "ok": True})
 
     # -- phase 4 -------------------------------------------------------- #
@@ -517,21 +646,26 @@ class Smoke:
 
     def main_path(self, data, tag: str, vocab_range: int) -> dict:
         """One vocab range's main path with its launches counted, every run
-        held to the unfused chain. Returns kernel → launches."""
+        held to the unfused chain of its plan. Returns kernel → launches."""
         torch, np = self.torch, self.np
-        from repro_torch.core import pipeline as P, schema as schema_lib, vocab as vocab_lib
+        from repro_torch.core import pipeline as P, plan as plan_lib
+        from repro_torch.core import schema as schema_lib, vocab as vocab_lib
         from repro_torch.data import loader, synth
         from repro_torch.kernels.decode_utf8 import ops as dops
+        from repro_torch.kernels.dense_xform import ops as dxops
         from repro_torch.kernels.fused_decode_vocab import ops as fdvops
         from repro_torch.kernels.fused_decode_xform import ops as fdxops
         from repro_torch.kernels.fused_vocab import ops as fvops
         from repro_torch.kernels.fused_xform import ops as fxops
+        from repro_torch.kernels.vocab import ops as vops
 
         counters = {"decode_scan": dops.KERNEL, "fused_genvocab": fvops.KERNEL,
                     "fused_genvocab_slabs": fvops.KERNEL_COUNTS,
                     "fused_transform": fxops.KERNEL, "fused_mod_dense": fxops.KERNEL_MOD_DENSE,
                     "fused_decode_genvocab": fdvops.KERNEL,
-                    "fused_decode_transform": fdxops.KERNEL}
+                    "fused_decode_transform": fdxops.KERNEL,
+                    "genvocab": vops.KERNEL_GENVOCAB, "apply_vocab": vops.KERNEL_APPLY,
+                    "dense_transform": dxops.KERNEL}
         launches = dict.fromkeys(counters, 0)
 
         def counted(fn):
@@ -551,14 +685,39 @@ class Smoke:
         sch = dataclasses.replace(schema_lib.CRITEO, vocab_range=vocab_range)
         kern = P.PipelineConfig(schema=sch, device=str(self.dev))
         oracle = dataclasses.replace(kern, use_fused_kernel=False, use_fused_vocab=False)
+        crossed = plan_lib.crossed_criteo(sch)
+        per_op = {"plan": crossed, "use_kernels": True, "use_fused_kernel": False,
+                  "use_fused_vocab": False}
+        # route → (feed, config fields, the loop-① and loop-② kernels each
+        # chunk launches besides decode). The decoded utf8 route, the
+        # bytes-in route and the binary feed run the default plan; the
+        # crossed plan (27 vocab columns, a bucketized dense column) runs on
+        # the per-op kernels of use_kernels (with use_fused_decode=True on
+        # the utf8 feed, which must not take the bytes-in route) and on the
+        # default hints (the fused kernels).
+        routes = {
+            "utf8": ("utf8", {}, ("fused_genvocab",), ("fused_transform",)),
+            "utf8_bytes_in": ("utf8", {"use_fused_decode": True},
+                              ("fused_decode_genvocab",), ("fused_decode_transform",)),
+            "binary": ("binary", {}, ("fused_genvocab",), ("fused_transform",)),
+            "crossed_utf8_kernels": ("utf8", {**per_op, "use_fused_decode": True},
+                                     ("genvocab",), ("apply_vocab", "dense_transform")),
+            "crossed_utf8_fused": ("utf8", {"plan": crossed},
+                                   ("fused_genvocab",), ("fused_transform",)),
+            "crossed_binary_kernels": ("binary", per_op,
+                                       ("genvocab",), ("apply_vocab", "dense_transform")),
+            "crossed_binary_fused": ("binary", {"plan": crossed},
+                                     ("fused_genvocab",), ("fused_transform",)),
+        }
         result = {"phase": "main", "schema": tag, "vocab_range": vocab_range}
         if not self.rehearse:
             torch.cuda.reset_peak_memory_stats()
-        oracles = {}  # feed → the unfused chain's state and outputs
-        # the utf8 feed on the decoded route and on the bytes-in route, and
-        # the binary feed
-        for route, feed, fused_decode in (("utf8", "utf8", None), ("utf8_bytes_in", "utf8", True),
-                                          ("binary", "binary", None)):
+        oracles = {}  # (feed, plan) → the unfused chain's state and outputs
+        uses = {}
+        for feed, fields, _, _ in routes.values():
+            key = (feed, fields.get("plan"))
+            uses[key] = uses.get(key, 0) + 1
+        for route, (feed, fields, kernels1, kernels2) in routes.items():
             if feed == "utf8":
                 chunks, n_rows = data["utf8_chunks"], data["utf8_rows"]
                 stacked = np.stack(chunks)
@@ -573,26 +732,29 @@ class Smoke:
                 starts = np.cumsum([0] + sizes[:-1])
                 payloads = [{k: data["binary"][k][r0:r0 + m] for k in ("label", "dense", "sparse")}
                             for r0, m in zip(starts, sizes)]
-            pipe = P.PiperPipeline(dataclasses.replace(
-                kern, input_format=feed, use_fused_decode=fused_decode))
+            pipe = P.PiperPipeline(dataclasses.replace(kern, input_format=feed, **fields))
             n = len(chunks)
             state, s1, l1 = counted(lambda: pipe.build_state_stream(chunks))
             vocab, s_fin, _ = counted(lambda: vocab_lib.finalize(state))
             outs, s2, l2 = counted(lambda: list(pipe.transform_stream(vocab, chunks)))
-            if feed not in oracles:
-                pipe_o = P.PiperPipeline(dataclasses.replace(oracle, input_format=feed))
+            key = (feed, fields.get("plan"))
+            if key not in oracles:
+                pipe_o = P.PiperPipeline(dataclasses.replace(
+                    oracle, input_format=feed, plan=fields.get("plan")))
                 state_o = pipe_o.build_state_stream(chunks)
-                oracles[feed] = (state_o, list(pipe_o.transform_stream(
+                oracles[key] = (state_o, list(pipe_o.transform_stream(
                     vocab_lib.finalize(state_o), chunks)))
-            # the decoded utf8 route keeps its oracle for the bytes-in route
-            state_o, outs_o = oracles[feed] if route == "utf8" else oracles.pop(feed)
+            state_o, outs_o = oracles[key]
+            uses[key] -= 1
+            if not uses[key]:
+                del oracles[key]
             expect(torch.equal(state.first_pos, state_o.first_pos),
                    f"{tag} {route}: loop ① state differs")
             expect(torch.equal(state.rows_seen, state_o.rows_seen),
                    f"{tag} {route}: rows_seen differs")
             self._same(outs, outs_o, f"{tag} {route} run_stream")
             table = self._flat(outs)
-            del outs, outs_o
+            del outs, outs_o, state_o
             scan, s_scan, l_scan = counted(lambda: pipe.run_scan(stacked))
             self._same([P.flatten_processed(scan)], [table],
                        f"{tag} {route} run_scan vs run_stream")
@@ -615,15 +777,20 @@ class Smoke:
                        f"{tag} {route} serve: dense differs from the offline table")
                 row0 += m
             del table, offline
-            if fused_decode and not self.rehearse:
-                # one bytes-in kernel per loop per chunk (and per request),
-                # and nothing else: no decode, no decoded-input kernel
+            if not self.rehearse:
+                # each chunk (and each request) launches exactly the route's
+                # kernels once per loop, plus one decode where the route
+                # decodes, and nothing else
+                decode = ("decode_scan",) if feed == "utf8" and route != "utf8_bytes_in" else ()
+
+                def each(names, times_):
+                    return {k: times_ for k in names}
+
                 for what, got, want in (
-                    ("loop ①", l1, {"fused_decode_genvocab": n}),
-                    ("loop ②", l2, {"fused_decode_transform": n}),
-                    ("run_scan", l_scan, {"fused_decode_genvocab": n,
-                                          "fused_decode_transform": n}),
-                    ("serve", l_serve, {"fused_decode_transform": len(sizes)}),
+                    ("loop ①", l1, each(decode + kernels1, n)),
+                    ("loop ②", l2, each(decode + kernels2, n)),
+                    ("run_scan", l_scan, {**each(decode, 2 * n), **each(kernels1 + kernels2, n)}),
+                    ("serve", l_serve, each(decode + kernels2, len(sizes))),
                 ):
                     expect(got == want, f"{tag} {route} {what}: launched {got}, expected {want}")
             # repeats of each loop for its spread, and the device's busy
@@ -636,6 +803,11 @@ class Smoke:
             busy1, busy2 = self.device_seconds(loop1), self.device_seconds(loop2)
             result[route] = {
                 "rows": n_rows, "chunks": n,
+                "vocab_columns": pipe.compiled.n_vocab_columns,
+                "routes": {"loop1": pipe.compiled.vocab_route,
+                           "loop2": pipe.compiled.xform_route,
+                           "decode": [pipe.compiled.decode_vocab_route,
+                                      pipe.compiled.decode_xform_route]},
                 "loop1_s": s1, "loop1_repeat_s": rep1, "loop1_rows_per_s_median": n_rows / med1,
                 "finalize_s": s_fin,
                 "loop2_s": s2, "loop2_repeat_s": rep2, "loop2_rows_per_s_median": n_rows / med2,
@@ -697,7 +869,8 @@ def make_data(np, rows: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="kernels,golden,main")
-    ap.add_argument("--out", default=None, help="also write every record to this JSON file")
+    ap.add_argument("--out", default=None,
+                    help="also write the kernel summary and every printed record to this JSON file")
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size; prints no result")
     args = ap.parse_args(argv)
@@ -750,8 +923,8 @@ def main(argv=None) -> int:
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps({"device": device, "kernels": kernels, "seconds": seconds},
-                                  indent=1))
+        out.write_text(json.dumps({"device": device, "kernels": kernels, "seconds": seconds,
+                                   "records": RECORDS}, indent=1))
     print(f"chip_smoke: all phases passed in {seconds:.1f} s", flush=True)
     if args.rehearse:
         print("chip_smoke: rehearsal on the CPU; no result", flush=True)

@@ -3,12 +3,14 @@
 A second package beside the JAX reference (``src/repro``), with the same
 layout and names so each counterpart is easy to find:
 
-  * ``core/``    — schema, the vocabulary engine, the stateless operators
-    and the two-loop ``PiperPipeline``;
+  * ``core/``    — schema, the vocabulary engine, the stateless operators,
+    the preprocessing-plan IR and its compiler, and the two-loop
+    ``PiperPipeline`` that runs a compiled plan;
   * ``kernels/`` — hand-written CUDA kernels for Hopper (``csrc/*.cu``),
     each beside a plain PyTorch version of the same function (``ref.py``);
   * ``data/``    — synthetic Criteo-format data and the binary chunk feed;
-  * ``interop``  — carrying loop-① state and vocabularies across packages.
+  * ``interop``  — carrying loop-① state, vocabularies and plans across
+    packages.
 
 The package imports ``torch`` and numpy only. Its entry points run on the
 card (``device="cuda"``) unless the caller asks for the CPU; on the CPU

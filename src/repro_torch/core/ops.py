@@ -8,7 +8,9 @@ one kernel launch (kernels/fused_xform, kernels/fused_vocab);
 from raw UTF-8 bytes, decode included, as one launch
 (kernels/fused_decode_xform, kernels/fused_decode_vocab). With
 ``use_kernel=False`` the unfused operators below compose instead — the
-differential oracle. ``Decode`` and ``FillMissing`` live in
+differential oracle. ``apply_vocab`` and ``dense_transform`` dispatch to
+the per-op kernels (kernels/vocab, kernels/dense_xform) with
+``use_kernel=True``. ``Decode`` and ``FillMissing`` live in
 kernels/decode_utf8.
 """
 
@@ -66,13 +68,27 @@ def hash_cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return to_i32(h)
 
 
-def dense_transform(dense: torch.Tensor) -> torch.Tensor:
-    """Neg2Zero + Logarithm."""
+def dense_transform(dense: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+    """Neg2Zero + Logarithm. With ``use_kernel`` it is one launch of
+    kernels/dense_xform (the plain version for CPU tensors)."""
+    if use_kernel:
+        from repro_torch.kernels.dense_xform import ops as dx_ops
+
+        return dx_ops.dense_transform(dense)
     return logarithm(neg2zero(dense.to(torch.float32)))
 
 
-def apply_vocab(vocab: vocab_lib.Vocabulary, modded: torch.Tensor) -> torch.Tensor:
-    """ApplyVocab-2: gather through the finalized table."""
+def apply_vocab(
+    vocab: vocab_lib.Vocabulary, modded: torch.Tensor, use_kernel: bool = False
+) -> torch.Tensor:
+    """ApplyVocab-2: gather through the finalized table. With
+    ``use_kernel`` it is one launch of kernels/vocab at any vocab range
+    (the plain version for CPU tensors); the reference keeps ranges above
+    its VMEM cutoff on the plain gather."""
+    if use_kernel:
+        from repro_torch.kernels.vocab import ops as vocab_ops
+
+        return vocab_ops.apply_vocab(vocab.table, modded)
     return vocab_lib.lookup(vocab, modded)
 
 

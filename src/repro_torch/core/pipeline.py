@@ -10,19 +10,24 @@ Two execution styles, as in the reference:
   * ``*_scan``   — all chunks stacked on a leading axis, moved to the
     device once and looped over (the reference's ``lax.scan``).
 
-The per-chunk chain is the reference's default plan (``plan.criteo_default``):
-Decode(+FillMissing) → [sparse: Modulus → GenVocab → ApplyVocab] ∥
-[dense: Neg2Zero → Logarithm], run directly as the compiled plan's
-``vocab_step`` and ``transform`` run it for that plan. The plan IR and its
-compiler are not ported yet (ROADMAP queue 1 item 3).
+The per-chunk operator chain is **plan-driven**: ``PipelineConfig.plan``
+holds a declarative :class:`~repro_torch.core.plan.PreprocPlan` (default:
+``plan.criteo_default`` — Decode(+FillMissing) → [sparse: Modulus →
+GenVocab → ApplyVocab] ∥ [dense: Neg2Zero → Logarithm]), which
+``plan_compiler.compile_plan`` validates, groups and routes once per
+engine. The engine only ever runs the compiled plan's two halves,
+``vocab_step`` (loop ①) and ``transform`` (loop ②), so crossed features,
+bucketized dense columns and other schemas run through the same code.
 
 On ``device="cuda"`` decode runs the decode kernel, and the fused hints
 (None) resolve to the loop-① and loop-② kernels; ``False`` selects the
-unfused operator chain, the differential oracle. With
-``use_fused_decode=True`` a utf8 feed takes the bytes-in route instead:
-each loop is one kernel launch from raw bytes, and the decoded field
-table is never stored. On ``device="cpu"`` every stage runs its plain
-PyTorch version.
+unfused operator chain, which ``use_kernels=True`` runs through the
+per-op kernels (GenVocab, ApplyVocab, the dense transform) and which is
+otherwise plain PyTorch, the differential oracle. With
+``use_fused_decode=True`` a utf8 feed takes the bytes-in route instead,
+where the plan allows it: each loop is one kernel launch from raw bytes,
+and the decoded field table is never stored. On ``device="cpu"`` every
+stage runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -33,19 +38,11 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from repro_torch.core import ops
+from repro_torch.core import plan as plan_lib
+from repro_torch.core import plan_compiler
 from repro_torch.core import schema as schema_lib
 from repro_torch.core import vocab as vocab_lib
 from repro_torch.kernels.decode_utf8 import ops as decode_ops
-
-# Config fields of the reference that this slice keeps only at their
-# defaults: field → (default, where the ROADMAP lists the work).
-_NOT_PORTED = {
-    "use_kernels": (False, "the unfused per-op kernels, ROADMAP queue 2 items 8-10 (slice 3)"),
-    "vocab_slab_range": (None, "the plan compiler's route metadata, ROADMAP queue 1 item 3"),
-    "plan": (None, "the plan IR and its compiler, ROADMAP queue 1 item 3"),
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
@@ -55,6 +52,10 @@ class PipelineConfig:
     max_rows_per_chunk: int = 1 << 14
     # Input already decoded ("binary", the paper's Config III) or raw UTF-8.
     input_format: str = "utf8"
+    # Run the unfused chain's GenVocab, ApplyVocab and Neg2Zero → Logarithm
+    # through their per-op kernels (kernels/vocab, kernels/dense_xform); the
+    # fused hints below take precedence where they apply. On "cpu" the
+    # wrappers take their plain versions, so the routing is tested there.
     use_kernels: bool = False
     # Loop ② as one fused kernel launch per chunk (kernels/fused_xform).
     # None → on for device "cuda", the plain chain on "cpu"; False → the
@@ -69,27 +70,39 @@ class PipelineConfig:
     # feeds only. None → off, as in the reference; True opts in. Unlike the
     # two hints above, True on "cpu" is allowed and runs the route with the
     # plain versions, as the reference's own tests run it on the CPU, so the
-    # routing is tested off the card. Loop ① stays on decode + the loop-①
-    # kernel when track_vocab_counts is on (the bytes-in kernel carries no
-    # count plane); loop ② needs a dense and a sparse column.
+    # routing is tested off the card. It applies only where the plan is the
+    # identity over the wire layout (CompiledPlan.decode_*_dispatch); loop ①
+    # stays on decode + the loop-① kernel when track_vocab_counts is on (the
+    # bytes-in kernel carries no count plane).
     use_fused_decode: bool | None = None
     # Carry the occurrence-count plane beside first_pos (VocabState.counts),
     # needed by vocab.finalize_topk / finalize_min_count.
     track_vocab_counts: bool = False
+    # The reference's forced loop-① slab width; not ported, must stay None.
     vocab_slab_range: int | None = None
-    plan: object = None
+    # The declarative per-column program (core/plan.py). None =
+    # plan.criteo_default(schema), the paper's chain. Compiled once per
+    # engine by plan_compiler.compile_plan.
+    plan: plan_lib.PreprocPlan | None = None
     # Where the pipeline runs. "cuda" raises when there is no card.
     device: str = "cuda"
 
     def __post_init__(self):
         if self.input_format not in ("utf8", "binary"):
             raise ValueError(f"unknown input_format: {self.input_format}")
-        for field, (default, item) in _NOT_PORTED.items():
-            if getattr(self, field) is not default:
-                raise NotImplementedError(
-                    f"PipelineConfig.{field}={getattr(self, field)!r} is not ported "
-                    f"yet ({item}); leave it at {default!r}"
-                )
+        if self.vocab_slab_range is not None:
+            raise NotImplementedError(
+                f"PipelineConfig.vocab_slab_range={self.vocab_slab_range!r} is not "
+                "ported: it forces the reference's hbm_slab tier, and the port's "
+                "loop-① kernels have one device-memory route at every vocab range "
+                "(ROADMAP); leave it at None"
+            )
+        if self.plan is not None and not isinstance(self.plan, plan_lib.PreprocPlan):
+            raise TypeError(
+                "PipelineConfig.plan must be a repro_torch.core.plan.PreprocPlan "
+                f"or None (criteo_default), got {type(self.plan).__name__}; a plan "
+                "of the JAX package converts with interop.plan_from_reference"
+            )
         dev = torch.device(self.device)
         if dev.type not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got {self.device!r}")
@@ -128,33 +141,40 @@ class PipelineConfig:
         """The resolved ``use_fused_decode`` hint (None → off)."""
         return bool(self.use_fused_decode)
 
+    def resolved_plan(self) -> plan_lib.PreprocPlan:
+        """The plan this config executes (None → the Criteo default)."""
+        return self.plan if self.plan is not None else plan_lib.criteo_default(self.schema)
+
 
 class PiperPipeline:
-    """Two-loop columnar preprocessing engine."""
+    """Two-loop columnar preprocessing engine (executes a CompiledPlan)."""
 
     def __init__(self, config: PipelineConfig):
         self.config = config
         self.schema = config.schema
         self.device = config.torch_device
+        self.plan = config.resolved_plan()
+        # Compiled once per engine; both loops only ever run its two halves.
+        self.compiled = plan_compiler.compile_plan(
+            self.plan,
+            self.schema,
+            device=self.device,
+            fused=config.fused_enabled,
+            use_kernels=config.use_kernels,
+            fused_vocab=config.fused_vocab_enabled,
+            fused_decode=config.fused_decode_enabled,
+            track_counts=config.track_vocab_counts,
+        )
+        # Bytes-in routing is static per engine: a utf8 feed, the hint on,
+        # and a plan that is the identity over the wire layout (the
+        # compiler's admissibility rules).
+        self._bytes_vocab = (
+            config.input_format == "utf8" and self.compiled.decode_vocab_dispatch
+        )
+        self._bytes_xform = (
+            config.input_format == "utf8" and self.compiled.decode_xform_dispatch
+        )
         self._hex_table = self.schema.field_is_hex()  # host-side: no sync per chunk
-        self._fused = config.fused_enabled
-        self._fused_vocab = config.fused_vocab_enabled
-        # Bytes-in routing, static per engine (the reference's admissibility
-        # rules for its default plan): a utf8 feed with the hint on, a sparse
-        # column, and for loop ① no count plane, for loop ② a dense column.
-        bytes_in = (
-            config.input_format == "utf8"
-            and config.fused_decode_enabled
-            and self.schema.n_sparse > 0
-        )
-        self._bytes_vocab = bytes_in and not config.track_vocab_counts
-        self._bytes_xform = bytes_in and self.schema.n_dense > 0
-        self._bytes_kw = dict(
-            n_fields=self.schema.n_fields,
-            n_dense=self.schema.n_dense,
-            n_sparse=self.schema.n_sparse,
-            max_rows=config.max_rows_per_chunk,
-        )
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
@@ -213,24 +233,17 @@ class PiperPipeline:
     # Loop ① — GenVocab
     # ------------------------------------------------------------------ #
     def init_state(self) -> vocab_lib.VocabState:
-        return vocab_lib.VocabState.init(
-            self.schema.n_sparse,
-            self.schema.vocab_range,
-            track_counts=self.config.track_vocab_counts,
-            device=self.device,
-        )
+        return self.compiled.init_state()
 
     def vocab_step(self, state: vocab_lib.VocabState, chunk) -> vocab_lib.VocabState:
-        """Absorb one chunk: every sparse column's uint32 Modulus →
-        GenVocab scatter-min, as one kernel launch when the hint is on —
-        decode included on the bytes-in route. The fused kernels update
-        ``state`` in place."""
+        """Absorb one chunk through the compiled plan's loop-① half: one
+        kernel launch on the fused route, decode included on the bytes-in
+        route. The kernels update ``state`` in place."""
         if self._bytes_vocab:
-            return ops.fused_decode_vocab_update(state, self._tensor(chunk), **self._bytes_kw)
-        batch = self._as_batch(chunk)
-        return ops.fused_vocab_update(
-            state, batch.sparse, batch.valid, use_kernel=self._fused_vocab
-        )
+            return self.compiled.vocab_step_bytes(
+                state, self._tensor(chunk), max_rows=self.config.max_rows_per_chunk
+            )
+        return self.compiled.vocab_step(state, self._as_batch(chunk))
 
     def build_state_stream(self, chunks: Iterable) -> vocab_lib.VocabState:
         """Loop ① over a host iterator, stopping *before* finalization."""
@@ -274,21 +287,13 @@ class PiperPipeline:
     def transform_chunk(
         self, vocabulary: vocab_lib.Vocabulary, chunk
     ) -> schema_lib.ProcessedBatch:
-        """Modulus → ApplyVocab ∥ Neg2Zero → Logarithm on one chunk, as one
-        kernel launch when the hint is on — decode included on the bytes-in
-        route."""
+        """One chunk through the compiled plan's loop-② half: one kernel
+        launch on the fused route, decode included on the bytes-in route."""
         if self._bytes_xform:
-            label, dense, ids, valid = ops.fused_decode_transform(
-                vocabulary, self._tensor(chunk), **self._bytes_kw
+            return self.compiled.transform_bytes(
+                vocabulary, self._tensor(chunk), max_rows=self.config.max_rows_per_chunk
             )
-            return schema_lib.ProcessedBatch(label=label, dense=dense, sparse=ids, valid=valid)
-        batch = self._as_batch(chunk)
-        ids, dense = ops.fused_transform(
-            vocabulary, batch.sparse, batch.dense, use_kernel=self._fused
-        )
-        return schema_lib.ProcessedBatch(
-            label=batch.label, dense=dense, sparse=ids, valid=batch.valid
-        )
+        return self.compiled.transform(vocabulary, self._as_batch(chunk))
 
     def frozen_transform(self, vocabulary: vocab_lib.Vocabulary) -> "FrozenVocabTransform":
         """Loop ② as a standalone serving-mode step (see the class)."""
@@ -331,9 +336,10 @@ class PiperPipeline:
 class FrozenVocabTransform:
     """Loop ② factored out of the two-loop engine: frozen-vocab serving.
 
-    Wraps a finalized :class:`vocab.Vocabulary` plus the per-chunk chain
-    (Decode → Modulus → ApplyVocab ∥ Neg2Zero → Logarithm; one bytes-in
-    launch per request when ``use_fused_decode`` is on) behind one
+    Wraps a finalized :class:`vocab.Vocabulary` plus the compiled plan's
+    loop-② half (Decode → Modulus → ApplyVocab ∥ Neg2Zero → Logarithm for
+    the default plan; one bytes-in launch per request when
+    ``use_fused_decode`` is on and the plan allows it) behind one
     callable, so a request stream of any length is served with bounded
     state. The vocabulary can be swapped between calls.
     """
@@ -354,6 +360,11 @@ class FrozenVocabTransform:
     @property
     def config(self) -> PipelineConfig:
         return self._pipe.config
+
+    @property
+    def compiled(self) -> plan_compiler.CompiledPlan:
+        """The compiled plan this transform executes (loop-② half)."""
+        return self._pipe.compiled
 
     @property
     def vocabulary(self) -> vocab_lib.Vocabulary:

@@ -1,11 +1,12 @@
-"""Carry the pipeline's learned parameters between packages through numpy.
+"""Carry the pipeline's learned parameters and its plan between packages.
 
 The system has no model weights: what loop ① learns is the
 :class:`~repro_torch.core.vocab.VocabState` (first positions, row count
 and the optional count plane) and what loop ② serves is the finalized
 :class:`~repro_torch.core.vocab.Vocabulary`. These functions move both to
 and from numpy, so a state that the JAX package's loop ① built continues
-in the port's, and the reverse.
+in the port's, and the reverse. :func:`plan_from_reference` turns the JAX
+package's preprocessing plan into the port's, so both compile one plan.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import plan as plan_lib
 from repro_torch.core import vocab as vocab_lib
 
 
@@ -58,3 +60,22 @@ def vocabulary_from_numpy(table, sizes, *, device) -> vocab_lib.Vocabulary:
 def vocabulary_to_numpy(vocab: vocab_lib.Vocabulary):
     """→ ``(table, sizes)`` as int32 numpy arrays."""
     return vocab.table.cpu().numpy(), vocab.sizes.cpu().numpy()
+
+
+def plan_from_reference(plan) -> plan_lib.PreprocPlan:
+    """A ``PreprocPlan`` of the JAX package → the port's, field by field.
+
+    Reads only attributes (``columns``; each column's ``kind``, ``source``,
+    ``ops`` and ``name``; each op's ``name`` and ``params``), so it needs
+    nothing of the JAX package and takes any object of that shape."""
+    return plan_lib.PreprocPlan(
+        columns=tuple(
+            plan_lib.ColumnSpec(
+                kind=c.kind,
+                source=tuple(c.source) if isinstance(c.source, tuple) else c.source,
+                ops=tuple(plan_lib.OpSpec(name=o.name, params=tuple(o.params)) for o in c.ops),
+                name=c.name,
+            )
+            for c in plan.columns
+        )
+    )

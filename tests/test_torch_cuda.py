@@ -16,10 +16,13 @@ import torch
 from chip_smoke import hostile_rows
 
 from repro_torch.core import pipeline as P
+from repro_torch.core import plan as tplan
 from repro_torch.core import vocab as tvocab
 from repro_torch.data import synth
 from repro_torch.kernels.decode_utf8 import ops as dops
 from repro_torch.kernels.decode_utf8 import ref as dref
+from repro_torch.kernels.dense_xform import ops as dxops
+from repro_torch.kernels.dense_xform import ref as dxref
 from repro_torch.kernels.fused_decode_vocab import ops as fdvops
 from repro_torch.kernels.fused_decode_vocab import ref as fdvref
 from repro_torch.kernels.fused_decode_xform import ops as fdxops
@@ -28,6 +31,8 @@ from repro_torch.kernels.fused_vocab import ops as fvops
 from repro_torch.kernels.fused_vocab import ref as fvref
 from repro_torch.kernels.fused_xform import ops as fxops
 from repro_torch.kernels.fused_xform import ref as fxref
+from repro_torch.kernels.vocab import ops as vops
+from repro_torch.kernels.vocab import ref as vref
 
 pytestmark = pytest.mark.cuda
 
@@ -220,6 +225,95 @@ def test_bytes_in_pipeline_on_card_matches_cpu(cuda, criteo_small):
     for f in ("label", "sparse", "valid"):
         assert torch.equal(getattr(scan, f), torch.cat([getattr(g, f) for g in gpu]))
     for g, c in zip(gpu, cpu):
+        for f in ("label", "sparse", "valid"):
+            assert torch.equal(getattr(g, f).cpu(), getattr(c, f))
+        torch.testing.assert_close(g.dense.cpu(), c.dense, rtol=1e-6, atol=0)
+
+
+def _modded(rng, rows, n_cols, vocab_range, cuda):
+    modded = rng.integers(0, vocab_range, size=(rows, n_cols)).astype(np.int32)
+    modded[1::5] = modded[0]  # equal keys within the chunk min-combine
+    return torch.from_numpy(modded).to(cuda)
+
+
+@pytest.mark.parametrize("vocab_range", [97, 5000, 1_000_000])
+@pytest.mark.parametrize("track_counts", [False, True], ids=["plain", "counts"])
+@pytest.mark.parametrize("rows_seen", [0, tvocab.NEVER - 3], ids=["start", "ceiling"])
+def test_per_op_genvocab_kernel_matches_plain(cuda, vocab_range, track_counts, rows_seen):
+    """kernels/vocab genvocab into a state with some history: first_pos,
+    counts and rows_seen bit for bit, saturating at the ceiling."""
+    rng = np.random.default_rng(vocab_range + 1)
+    modded = _modded(rng, 300, 27, vocab_range, cuda)
+    valid = torch.from_numpy(rng.random(300) < 0.8).to(cuda)
+    history = torch.from_numpy(np.where(
+        rng.random((27, vocab_range)) < 0.2, rng.integers(0, 50, (27, vocab_range)),
+        tvocab.NEVER).astype(np.int32)).to(cuda)
+
+    def fresh():
+        counts = torch.ones_like(history) if track_counts else None
+        return tvocab.VocabState(
+            history.clone(), torch.tensor(rows_seen, dtype=torch.int32, device=cuda), counts)
+
+    got = vops.genvocab_update(fresh(), modded, valid)
+    want = fresh()
+    pos = tvocab.positions(want.rows_seen, 300, valid)
+    assert torch.equal(got.first_pos, vref.genvocab(want.first_pos, modded.t(), pos))
+    assert torch.equal(got.rows_seen, tvocab.update(want, modded, valid).rows_seen)
+    if track_counts:
+        assert torch.equal(got.counts, vref.genvocab_counts(want.counts, modded.t(), pos))
+
+
+@pytest.mark.parametrize("vocab_range", [97, 5000, 1_000_000])
+def test_per_op_apply_vocab_kernel_matches_plain(cuda, vocab_range):
+    rng = np.random.default_rng(vocab_range + 2)
+    modded = _modded(rng, 300, 27, vocab_range, cuda)
+    table = torch.from_numpy(
+        rng.integers(0, 1000, size=(27, vocab_range)).astype(np.int32)).to(cuda)
+    ids = vops.apply_vocab(table, modded)
+    assert torch.equal(ids, vref.apply_vocab(table, modded.t()).t())
+    assert torch.equal(ids, tvocab.lookup(tvocab.Vocabulary(table, None), modded))
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_dense_transform_kernel_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(3)
+    if dtype == "int32":
+        x = rng.integers(-(2**31), 2**31 - 1, size=(1001, 13), dtype=np.int64).astype(np.int32)
+        x[0, :6] = [-(2**31), -1, 0, 1, 2**24 + 1, 2**31 - 1]
+    else:
+        x = (rng.standard_normal((1001, 13)) * 1e3).astype(np.float32)
+        x[0, :7] = [-np.inf, -0.0, 0.0, 1e-30, 3.4e38, np.inf, np.nan]
+    xt = torch.from_numpy(x).to(cuda)
+    got = dxops.dense_transform(xt)
+    assert got.dtype == torch.float32 and got.shape == xt.shape
+    torch.testing.assert_close(got, dxref.dense_transform(xt), rtol=1e-6, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("fmt", ["utf8", "binary"])
+def test_use_kernels_pipeline_on_card_matches_cpu(cuda, criteo_small, fmt):
+    """The crossed plan with use_kernels=True and the fused hints off: per
+    chunk one genvocab in loop ①, one apply_vocab and one dense_transform
+    in loop ②, no fused kernel, and the CPU's results."""
+    buf, table, _ = criteo_small
+    kw = dict(chunk_bytes=32768, max_rows_per_chunk=256, input_format=fmt,
+              plan=tplan.crossed_criteo(), use_kernels=True, use_fused_decode=True)
+    if fmt == "utf8":
+        chunks = list(synth.chunk_stream(buf, 32768))
+    else:
+        chunks = [{k: table[k][i:i + 100] for k in ("label", "dense", "sparse")}
+                  for i in range(0, 400, 100)]
+    counted = (vops.KERNEL_GENVOCAB, vops.KERNEL_APPLY, dxops.KERNEL, fvops.KERNEL,
+               fvops.KERNEL_COUNTS, fxops.KERNEL, fdvops.KERNEL, fdxops.KERNEL)
+    for k in counted:
+        k.launches = 0
+    gpu = list(P.PiperPipeline(P.PipelineConfig(
+        use_fused_kernel=False, use_fused_vocab=False, **kw)).run_stream(lambda: iter(chunks)))
+    n = len(chunks)
+    assert [k.launches for k in counted] == [n, n, n, 0, 0, 0, 0, 0]
+    cpu = list(P.PiperPipeline(P.PipelineConfig(device="cpu", **kw))
+               .run_stream(lambda: iter(chunks)))
+    for g, c in zip(gpu, cpu):
+        assert g.sparse.shape[1] == 27
         for f in ("label", "sparse", "valid"):
             assert torch.equal(getattr(g, f).cpu(), getattr(c, f))
         torch.testing.assert_close(g.dense.cpu(), c.dense, rtol=1e-6, atol=0)

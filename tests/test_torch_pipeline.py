@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from repro.core import pipeline as JP
+from repro.core import plan as jplan
 from repro.core import vocab as jvocab
 from repro.data import loader as jloader
 from repro.data import synth as jsynth
+from repro_torch import interop
 from repro_torch.core import pipeline as TP
 from repro_torch.core import vocab as tvocab
 from repro_torch.data import loader as tloader
@@ -146,13 +148,33 @@ def test_build_state_stream_guards_ceiling(criteo_small, monkeypatch):
         pipe.build_state_stream(tsynth.chunk_stream(buf, 4096))
 
 
-@pytest.mark.parametrize(
-    "field,value",
-    [("use_kernels", True), ("vocab_slab_range", 128), ("plan", object())],
-)
+@pytest.mark.parametrize("field,value", [("vocab_slab_range", 128)])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TP.PipelineConfig(device="cpu", **{field: value})
+
+
+def test_plan_must_be_a_port_plan():
+    with pytest.raises(TypeError, match="PreprocPlan.*plan_from_reference"):
+        TP.PipelineConfig(device="cpu", plan=object())
+
+
+@pytest.mark.parametrize("field", ["use_kernels", "plan"])
+def test_plan_and_use_kernels_match_reference(criteo_small, field):
+    """The two fields run on the CPU, each against the JAX engine under the
+    same setting: use_kernels=True (the per-op kernels' plain versions
+    here, the Pallas kernels in interpret mode there) and a crossed,
+    bucketized plan."""
+    jkw, tkw = {"use_kernels": True}, {"use_kernels": True}
+    if field == "plan":
+        jkw = {"plan": jplan.crossed_criteo(bucket_cols=(0, 5))}
+        tkw = {"plan": interop.plan_from_reference(jkw["plan"])}
+    kw = dict(chunk_bytes=CHUNK_BYTES, max_rows_per_chunk=MAX_ROWS, input_format="binary")
+    jpipe = JP.PiperPipeline(JP.PipelineConfig(use_fused_kernel=False, **kw, **jkw))
+    tpipe = TP.PiperPipeline(TP.PipelineConfig(device="cpu", **kw, **tkw))
+    chunks = _feeds(criteo_small, "binary")
+    _assert_batches_equal(list(tpipe.run_stream(chunks)), list(jpipe.run_stream(chunks)))
+    assert tpipe.compiled.n_sparse_out == jpipe.compiled.n_sparse_out
 
 
 def test_config_checks():
