@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,golden,main] [--out results.json]
+    python3 chip_smoke.py [--phases kernels,golden,main,train] [--out results.json]
     python3 chip_smoke.py --rehearse      # plumbing only, on the CPU
 
 Phases, each of which passes or ends the run with a non-zero exit:
@@ -27,6 +27,19 @@ Phases, each of which passes or ends the run with a non-zero exit:
      these runs and read after; a kernel of the path that never launched
      fails the run, and so does a bytes-in chunk that launched anything but
      one bytes-in kernel per loop.
+  5. train — Piper → DLRM training at CONFIG_5K and CONFIG_1M (full width,
+     batches of 4096 rows, AdamW with global-norm clipping, TF32 off):
+     run_stream over the utf8 feed with the default hints, its valid rows
+     through TrainInputPipeline, then 50 (5K) or 20 (1M) train steps with
+     the loss read one step lagged. Every step must launch exactly one
+     embedding_gather and one embedding_gather_backward; the loss must be
+     finite and fall (last 10 steps against the first 10); one checkpoint
+     with Piper's VocabState under extra must restore bit for bit. At 5K
+     the first 5 steps are held to the port's CPU path on the same weights
+     and batches (loss, grad_norm, step-1 gradients), and a second run from
+     the same seed must end in bit-identical weights and optimizer state.
+     Prints ms per step, rows/s, the device's busy share of one profiled
+     step and the peak device memory.
 
 The last lines are the {"kernels": [...]} summary, the nvidia-smi name
 and power limit, and {"ok": true, "device": {...}}. Without a CUDA device,
@@ -42,6 +55,8 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -64,6 +79,10 @@ TPU_KERNELS = {  # kernel → (replaced Pallas kernel, the port's source)
     "genvocab": ("src/repro/kernels/vocab/kernel.py:83", "vocab.cu"),
     "apply_vocab": ("src/repro/kernels/vocab/kernel.py:40", "vocab.cu"),
     "dense_transform": ("src/repro/kernels/dense_xform/kernel.py:25", "dense_xform.cu"),
+    "embedding_gather": ("src/repro/kernels/embedding_bag/kernel.py:25", "embedding_bag.cu"),
+    "embedding_gather_backward": (
+        "none: the JAX package's gradient is XLA's scatter-add through "
+        "src/repro/kernels/embedding_bag/ref.py:10", "embedding_bag.cu"),
 }
 # The kernels the port's main paths run (the decoded route, the bytes-in
 # route of use_fused_decode=True, and the crossed plan's use_kernels route);
@@ -72,7 +91,16 @@ TPU_KERNELS = {  # kernel → (replaced Pallas kernel, the port's source)
 PATH_KERNELS = ("decode_scan", "fused_genvocab", "fused_genvocab_slabs", "fused_transform",
                 "fused_decode_genvocab", "fused_decode_transform", "genvocab", "apply_vocab",
                 "dense_transform")
+# The kernels the train phase's path runs: Piper's decoded utf8 route with
+# the default hints, then the DLRM's embedding gather and its gradient.
+TRAIN_KERNELS = ("decode_scan", "fused_genvocab", "fused_transform", "embedding_gather",
+                 "embedding_gather_backward")
 RANGES = {"5K": 5000, "1M": 1_000_000}
+# The train phase: batch rows and steps per range; a CPU rehearsal trains
+# smaller batches and stands a 20000-row table in for the 1M one.
+TRAIN_BATCH, TRAIN_STEPS = 4096, {"5K": 50, "1M": 20}
+REHEARSAL_TRAIN_BATCH, REHEARSAL_TRAIN_STEPS = 256, {"5K": 20, "1M": 20}
+REHEARSAL_RANGES = {"5K": 5000, "1M": 20000}
 CHUNK_BYTES = 1 << 20
 MAX_ROWS = 1 << 14
 # Rows of the main path's feeds: on the card, and in a CPU rehearsal.
@@ -82,6 +110,31 @@ REHEARSAL_ROWS = {"utf8": 8000, "binary": 40000}
 
 class SmokeFailure(Exception):
     pass
+
+
+def counters() -> dict:
+    """Kernel name → the launch counter of its wrapper."""
+    from repro_torch.kernels.decode_utf8 import ops as dops
+    from repro_torch.kernels.dense_xform import ops as dxops
+    from repro_torch.kernels.embedding_bag import ops as ebops
+    from repro_torch.kernels.fused_decode_vocab import ops as fdvops
+    from repro_torch.kernels.fused_decode_xform import ops as fdxops
+    from repro_torch.kernels.fused_vocab import ops as fvops
+    from repro_torch.kernels.fused_xform import ops as fxops
+    from repro_torch.kernels.vocab import ops as vops
+
+    return {"decode_scan": dops.KERNEL, "fused_genvocab": fvops.KERNEL,
+            "fused_genvocab_slabs": fvops.KERNEL_COUNTS,
+            "fused_transform": fxops.KERNEL, "fused_mod_dense": fxops.KERNEL_MOD_DENSE,
+            "fused_decode_genvocab": fdvops.KERNEL, "fused_decode_transform": fdxops.KERNEL,
+            "genvocab": vops.KERNEL_GENVOCAB, "apply_vocab": vops.KERNEL_APPLY,
+            "dense_transform": dxops.KERNEL, "embedding_gather": ebops.KERNEL,
+            "embedding_gather_backward": ebops.KERNEL_BACKWARD}
+
+
+def reset_counters(kernels: dict) -> None:
+    for k in kernels.values():
+        k.launches = 0
 
 
 RECORDS = []  # every line emit() printed, for --out
@@ -230,9 +283,10 @@ class Smoke:
             times.append(time.perf_counter() - t0)
         return times
 
-    def device_seconds(self, fn) -> float | None:
-        """Seconds the device spent in kernels and copies during one call of
-        ``fn`` (torch.profiler); None in a rehearsal."""
+    def profile(self, fn) -> list | None:
+        """The device's kernels and copies during one call of ``fn``
+        (torch.profiler), by name: ``{"name", "count", "ms"}``, most device
+        time first. None in a rehearsal."""
         if self.rehearse:
             fn()
             return None
@@ -242,10 +296,16 @@ class Smoke:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        return sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-        ) / 1e6
+        rows = [{"name": e.key[:80], "count": e.count, "ms": e.self_device_time_total / 1e3}
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total]
+        return sorted(rows, key=lambda r: -r["ms"])
+
+    def device_seconds(self, fn) -> float | None:
+        """Seconds the device spent in kernels and copies during one call of
+        ``fn`` (torch.profiler); None in a rehearsal."""
+        rows = self.profile(fn)
+        return None if rows is None else sum(r["ms"] for r in rows) / 1e3
 
     # -- phase 1 -------------------------------------------------------- #
     def device(self) -> dict:
@@ -571,6 +631,7 @@ class Smoke:
                 "library_call": "torch.gather on the transposed int64 indices (the same function)",
                 "shape": f"modded [{rows}, {n27}], table [{n27}, {vr}]",
             })
+            self.embedding_kernels(record, data, tag, vocab, kw)
 
         # the crossed plan's canonical dense group (dense columns 1-12 of the
         # chunk), with int32 extremes, and the same values as f32
@@ -592,6 +653,103 @@ class Smoke:
             "shape": f"int32 [{d12.shape[0]}, {d12.shape[1]}]",
         })
         return records
+
+    def embedding_kernels(self, record, data, tag: str, vocab, kw) -> None:
+        """The DLRM's embedding gather and its gradient at the train phase's
+        shapes: tables [26, V, 64], ids [4096, 26] (Piper's ordinals of the
+        feed's first chunks through ``vocab``, and a copy with ids -1, V and
+        V+7), the output gradient [4096, 26, 64]."""
+        torch, np, dev = self.torch, self.np, self.dev
+        from repro_torch.core import schema as schema_lib
+        from repro_torch.kernels.decode_utf8 import ops as dops
+        from repro_torch.kernels.embedding_bag import ops as ebops, ref as ebref
+        from repro_torch.kernels.fused_xform import ops as fxops
+
+        batch = REHEARSAL_TRAIN_BATCH if self.rehearse else TRAIN_BATCH
+        hex_table = schema_lib.CRITEO.field_is_hex()
+        rows = []
+        for c in data["utf8_chunks"]:
+            b = dops.decode(torch.from_numpy(c).to(dev), hex_table, **kw)
+            rows.append(fxops.fused_transform(vocab, b[2], b[1])[0][b[3]])
+            if sum(len(r) for r in rows) >= batch:
+                break
+        ids = torch.cat(rows)[:batch].contiguous()
+        # (a rehearsal stands a smaller table in for 1M; Piper's ordinals
+        # stay below the feed's 2^14 distinct values per column)
+        n_cols, dim = ids.shape[1], 64
+        vr = REHEARSAL_RANGES[tag] if self.rehearse else vocab.vocab_range
+        gen = torch.Generator(dev).manual_seed(7)
+        tables = torch.randn((n_cols, vr, dim), generator=gen, device=dev) * dim**-0.5
+        grad_out = torch.randn((batch, n_cols, dim), generator=gen, device=dev)
+        odd = ids.clone()
+        odd[0, :3] = torch.tensor([-1, vr, vr + 7], dtype=torch.int32)
+
+        for what, x in (("Piper's ids", ids), ("ids -1, V, V+7", odd)):
+            got = ebops.embedding_gather(tables, x)
+            self.sync()
+            expect(torch.equal(got, ebref.embedding_gather(tables, x)),
+                   f"embedding_gather V={vr}, {what}: differs from the plain version")
+        col = torch.arange(n_cols, device=dev)
+        flat = ebref.clamp_ids(ids, vr) + col * vr
+        touched = int(torch.unique(flat).numel())
+        # ids in, each distinct (column, id) row read once, the output written once
+        b_ms, b_by = bound(batch * n_cols * 4 + touched * dim * 4 + batch * n_cols * dim * 4, 0)
+        table2d = tables.view(n_cols * vr, dim)
+        record(f"embedding_gather@{tag}", {
+            "max_abs_err": 0,
+            **self.times(lambda: ebops.embedding_gather(tables, ids),
+                         lambda: ebref.embedding_gather(tables, ids),
+                         lambda: torch.nn.functional.embedding(flat, table2d)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_call": "F.embedding on clamped ids + c·V (the same function)",
+            "shape": f"tables [{n_cols}, {vr}, {dim}], ids [{batch}, {n_cols}]",
+        })
+        del table2d
+
+        # the gradient: against the float64 plain version within the float32
+        # bound (n-1)·2^-24·Σ|terms| per element (n: most rows into one
+        # table row), dropped ids included; two launches, the same bits
+        err = 0.0
+        for what, x in (("Piper's ids", ids), ("ids -1, V, V+7", odd)):
+            got = ebops.embedding_gather_backward(grad_out, x, vr)
+            again = ebops.embedding_gather_backward(grad_out, x, vr)
+            self.sync()
+            expect(torch.equal(got, again),
+                   f"embedding_gather_backward V={vr}, {what}: two launches differ")
+            del again
+            want = ebref.embedding_gather_backward(grad_out, x, vr, dtype=torch.float64)
+            n = max(int(torch.unique(ebref.wrap_ids(x[:, c], vr), return_counts=True)[1].max())
+                    for c in range(n_cols))
+            delta = got.double()
+            del got
+            delta.sub_(want).abs_()
+            del want
+            limit = ebref.embedding_gather_backward(grad_out.abs(), x, vr, dtype=torch.float64)
+            limit.mul_(max(n - 1, 1) * 2.0**-24)
+            expect(bool((delta <= limit).all()),
+                   f"embedding_gather_backward V={vr}, {what}: beyond (n-1)·2^-24·Σ|terms|")
+            err = max(err, float(delta.max()))
+            del delta, limit
+        rows_flat = (ebref.wrap_ids(ids, vr) + col * vr).reshape(-1)
+        grad2d = grad_out.view(-1, dim)
+        # the output gradient and ids in, the whole dense gradient written once
+        b_ms, b_by = bound(batch * n_cols * (dim + 1) * 4 + n_cols * vr * dim * 4,
+                           batch * n_cols * dim)
+        record(f"embedding_gather_backward@{tag}", {
+            "max_abs_err": err,
+            **self.times(
+                lambda: ebops.embedding_gather_backward(grad_out, ids, vr),
+                lambda: ebref.embedding_gather_backward(grad_out, ids, vr),
+                lambda: torch.zeros((n_cols * vr, dim), device=dev).index_add_(
+                    0, rows_flat, grad2d),
+                plain_reps=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_call": "torch.zeros(C·V, D).index_add_ on ids + c·V (atomics: "
+                            "not deterministic)",
+            "tolerance": "(n-1)·2^-24·Σ|terms| per element against float64, n = "
+                         f"{n} rows into the hottest table row",
+            "shape": f"grad_out [{batch}, {n_cols}, {dim}] into [{n_cols}, {vr}, {dim}]",
+        })
 
     # -- phase 3 -------------------------------------------------------- #
     def golden(self) -> None:
@@ -651,33 +809,19 @@ class Smoke:
         from repro_torch.core import pipeline as P, plan as plan_lib
         from repro_torch.core import schema as schema_lib, vocab as vocab_lib
         from repro_torch.data import loader, synth
-        from repro_torch.kernels.decode_utf8 import ops as dops
-        from repro_torch.kernels.dense_xform import ops as dxops
-        from repro_torch.kernels.fused_decode_vocab import ops as fdvops
-        from repro_torch.kernels.fused_decode_xform import ops as fdxops
-        from repro_torch.kernels.fused_vocab import ops as fvops
-        from repro_torch.kernels.fused_xform import ops as fxops
-        from repro_torch.kernels.vocab import ops as vops
 
-        counters = {"decode_scan": dops.KERNEL, "fused_genvocab": fvops.KERNEL,
-                    "fused_genvocab_slabs": fvops.KERNEL_COUNTS,
-                    "fused_transform": fxops.KERNEL, "fused_mod_dense": fxops.KERNEL_MOD_DENSE,
-                    "fused_decode_genvocab": fdvops.KERNEL,
-                    "fused_decode_transform": fdxops.KERNEL,
-                    "genvocab": vops.KERNEL_GENVOCAB, "apply_vocab": vops.KERNEL_APPLY,
-                    "dense_transform": dxops.KERNEL}
-        launches = dict.fromkeys(counters, 0)
+        kernels = counters()
+        launches = dict.fromkeys(kernels, 0)
 
         def counted(fn):
             """Run one piece of the main path, every counter at 0 before it."""
-            for k in counters.values():
-                k.launches = 0
+            reset_counters(kernels)
             self.sync()
             t0 = time.perf_counter()
             out = fn()
             self.sync()
             seconds = time.perf_counter() - t0
-            got = {name: k.launches for name, k in counters.items()}
+            got = {name: k.launches for name, k in kernels.items()}
             for name, n in got.items():
                 launches[name] += n
             return out, seconds, {k: v for k, v in got.items() if v}
@@ -849,6 +993,262 @@ class Smoke:
         return launches
 
 
+    # -- phase 5 -------------------------------------------------------- #
+    def train(self, data, tag: str) -> dict:
+        """Piper → DLRM training at one range, every train step's launches
+        counted on its own. Returns kernel → launches over the phase's path
+        (Piper's run_stream and the train steps). Prints what it measured,
+        also when a check fails."""
+        result = {"phase": "train", "range": tag}
+        try:
+            return self._train(data, tag, result)
+        finally:
+            emit(result)
+
+    def _train(self, data, tag: str, result: dict) -> dict:
+        torch, dev = self.torch, self.dev
+        from repro_torch.configs import piper_dlrm
+        from repro_torch.core import pipeline as P
+        from repro_torch.models import dlrm
+        from repro_torch.train import checkpoint, input_pipeline, optimizer, steps
+        from repro_torch.train.tree import leaves, leaves_with_paths
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = {"5K": piper_dlrm.CONFIG_5K, "1M": piper_dlrm.CONFIG_1M}[tag]
+        batch_rows, n_steps = TRAIN_BATCH, TRAIN_STEPS[tag]
+        if self.rehearse:
+            vr = REHEARSAL_RANGES[tag]
+            cfg = dataclasses.replace(
+                cfg, schema=dataclasses.replace(cfg.schema, vocab_range=vr),
+                model=dataclasses.replace(cfg.model, vocab_range=vr))
+            batch_rows, n_steps = REHEARSAL_TRAIN_BATCH, REHEARSAL_TRAIN_STEPS[tag]
+        else:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        result.update(config=cfg.name, vocab_range=cfg.model.vocab_range,
+                      batch_rows=batch_rows, steps=n_steps,
+                      allow_tf32={"cuda.matmul": torch.backends.cuda.matmul.allow_tf32,
+                                  "cudnn": torch.backends.cudnn.allow_tf32})
+        kernels = counters()
+        launches = dict.fromkeys(kernels, 0)
+        chunks = data["utf8_chunks"]
+
+        seconds = result["seconds"] = {}
+        t_lap = [time.perf_counter()]
+
+        def lap(name):
+            """Host seconds since the last lap, into result["seconds"]."""
+            self.sync()
+            now = time.perf_counter()
+            seconds[name] = now - t_lap[0]
+            t_lap[0] = now
+
+        # Piper's two loops, default hints, on the utf8 feed
+        pipe = P.PiperPipeline(cfg.pipeline_config(device=str(dev)))
+        reset_counters(kernels)
+        self.sync()
+        t0 = time.perf_counter()
+        outs = list(pipe.run_stream(lambda: iter(chunks)))
+        self.sync()
+        result["piper_s"] = time.perf_counter() - t0
+        got = {k: v.launches for k, v in kernels.items() if v.launches}
+        for k, v in got.items():
+            launches[k] += v
+        if not self.rehearse:
+            n = len(chunks)
+            want = {"decode_scan": 2 * n, "fused_genvocab": n, "fused_transform": n}
+            expect(got == want, f"train {tag}: Piper launched {got}, expected {want}")
+        result["piper_launches"] = got
+        state = pipe.build_state_stream(chunks)  # loop ①'s state, for the checkpoint
+        lap("piper")
+
+        def fresh():
+            gen = torch.Generator(dev).manual_seed(0)
+            model = dlrm.DLRM(cfg.model, device=dev, generator=gen)
+            return model, optimizer.adamw_init(model.params_tree())
+
+        step = steps.make_tabular_train_step(dlrm.loss, optimizer.AdamWConfig())
+        model, opt = fresh()
+        lap("init")
+        batches, losses, step_launches, events = [], [], [], []
+
+        def mark():
+            if not self.rehearse:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+
+        # the train loop: the loss read one step lagged, so the host queues
+        # step i while the device finishes step i-1
+        it = iter(input_pipeline.TrainInputPipeline(outs, batch_rows=batch_rows,
+                                                    n_steps=n_steps))
+        pending = None
+        mark()
+        for _ in range(n_steps):
+            batch = next(it)
+            batches.append(batch)
+            reset_counters(kernels)
+            metrics = step(model, opt, batch)
+            got = {k: v.launches for k, v in kernels.items() if v.launches}
+            step_launches.append(got)
+            for k, v in got.items():
+                launches[k] += v
+            if pending is not None:
+                losses.append(float(pending))
+            pending = metrics["loss"]
+            mark()
+        losses.append(float(pending))
+        lap("train_steps")
+        if not self.rehearse:
+            want = {"embedding_gather": 1, "embedding_gather_backward": 1}
+            for i, got in enumerate(step_launches):
+                expect(got == want, f"train {tag}: step {i} launched {got}, expected {want}")
+            result["peak_memory_bytes_training"] = torch.cuda.max_memory_allocated()
+        first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+        result.update(losses=losses, loss_first10_mean=first, loss_last10_mean=last,
+                      launches_per_step=step_launches[0])
+        if events:
+            step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+            med = statistics.median(step_ms[3:])
+            result.update(step_ms=step_ms, ms_per_step_median=med,
+                          rows_per_s=batch_rows / (med / 1e3))
+        expect(all(math.isfinite(x) for x in losses), f"train {tag}: a loss is not finite")
+        expect(last < first, f"train {tag}: loss did not fall ({first} → {last})")
+
+        # one checkpoint, Piper's VocabState under extra, restored bit for bit
+        final = [t.detach().clone() for t in leaves(model.params_tree()) + leaves(opt)] \
+            if tag == "5K" else None
+        root = ROOT / "build" / "train_ckpt" / tag
+        shutil.rmtree(root, ignore_errors=True)
+        tree = {"params": model.params_tree(), "opt": opt, "extra": {"vocab": state}}
+        ckpt = checkpoint.AsyncCheckpointer(str(root), keep=1)
+        t0 = time.perf_counter()
+        ckpt.save_async(n_steps, tree)
+        snapshot_s = time.perf_counter() - t0
+        ckpt.wait()
+        write_s = time.perf_counter() - t0 - snapshot_s
+        expect(checkpoint.latest_step(str(root)) == n_steps, f"train {tag}: no checkpoint")
+        t0 = time.perf_counter()
+        back = checkpoint.restore(str(root), n_steps, tree, device=dev)
+        self.sync()
+        restore_s = time.perf_counter() - t0
+        n_leaves = 0
+        for (path, a), b in zip(leaves_with_paths(back), leaves(tree)):
+            expect(torch.equal(a, b.detach()), f"train {tag}: checkpoint leaf "
+                   f"{'/'.join(path)} differs after the round trip")
+            n_leaves += 1
+        del back
+        result["checkpoint"] = {
+            "leaves": n_leaves, "bytes": sum(t.numel() * t.element_size() for t in leaves(tree)),
+            "snapshot_s": snapshot_s, "write_s": write_s, "restore_s": restore_s}
+        shutil.rmtree(root)
+
+        lap("checkpoint")
+
+        # the device's busy share of one more step, profiled, and where its
+        # device time goes
+        prof = self.profile(lambda: step(model, opt, batches[-1]))
+        if prof is not None and "ms_per_step_median" in result:
+            busy_ms = sum(e["ms"] for e in prof)
+            result["device_busy_share"] = busy_ms / result["ms_per_step_median"]
+            result["profiled_step"] = {"device_launches": sum(e["count"] for e in prof),
+                                       "top": prof[:10]}
+        del model, opt, tree
+        lap("profiled_step")
+
+        if tag == "5K":
+            self._cpu_agreement(cfg, fresh, step, batches, result)
+            lap("cpu_agreement")
+            # determinism: a second run from the same seed on the same batches
+            model, opt = fresh()
+            for batch in batches:
+                step(model, opt, batch)
+            self.sync()
+            for i, (a, b) in enumerate(zip(leaves(model.params_tree()) + leaves(opt), final)):
+                expect(torch.equal(a.detach(), b), f"train {tag}: a second run from the same "
+                       f"seed ends with other bits in leaf {i}")
+            result["deterministic"] = True
+            del model, opt, final
+            lap("second_run")
+        if not self.rehearse:
+            result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        result["launches"] = {k: v for k, v in launches.items() if v}
+        return launches
+
+    def _relu_inputs(self, model, batch):
+        """The inputs of every ReLU of ``model``'s forward pass on ``batch``,
+        flattened into one tensor."""
+        torch = self.torch
+        seen = []
+        hooks = [layer.register_forward_hook(lambda mod, inp, out: seen.append(out.flatten()))
+                 for mlp in (model.bottom, model.top) for layer in list(mlp)[:-1]]
+        try:
+            with torch.no_grad():
+                model(batch["dense"], batch["sparse"])
+        finally:
+            for h in hooks:
+                h.remove()
+        return torch.cat(seen)
+
+    def _cpu_agreement(self, cfg, fresh, step, batches, result: dict) -> None:
+        """The first 5 steps on the card against the port's CPU path on the
+        same weights, AdamW state and batches: before each step the CPU
+        model takes the card's weights and state.
+
+        Tolerances, float32 throughout (TF32 off). A pre-activation within
+        rounding of 0 can fall on the other side of a ReLU on the card, and
+        then every gradient below that ReLU moves by a discrete step (on an
+        H100 at 5K, with one such flip: the two layers above the first ReLU
+        agreed to 2e-7, the rest to 4e-5-1.5e-4). So each parameter's step-1
+        gradient is held norm-wise, |Δ|₂ ≤ 1e-3·|g|₂, and entry-wise,
+        max|Δ| ≤ 1e-3·max|g|, and the ReLU inputs whose sign differs are
+        counted. Each step's loss (a mean of 4096 terms) and grad_norm
+        within rtol 1e-4."""
+        torch = self.torch
+        from repro_torch.models import dlrm
+        from repro_torch.train import optimizer, steps
+        from repro_torch.train.tree import leaves, leaves_with_paths
+
+        model, opt = fresh()
+        cpu = dlrm.DLRM(cfg.model, device="cpu")
+        cpu_opt = optimizer.adamw_init(cpu.params_tree())
+        pairs = list(zip(leaves(cpu.params_tree()) + leaves(cpu_opt),
+                         leaves(model.params_tree()) + leaves(opt)))
+        grad_err, loss_err, norm_err = {}, [], []
+        failures = []
+        for i, batch in enumerate(batches[:5]):
+            with torch.no_grad():
+                for a, b in pairs:
+                    a.copy_(b.cpu())
+            cpu_batch = {k: v.cpu() for k, v in batch.items()}
+            if i == 0:
+                card_signs = self._relu_inputs(model, batch) > 0
+                flips = int((card_signs.cpu() != (self._relu_inputs(cpu, cpu_batch) > 0)).sum())
+                del card_signs
+                _, got = steps.value_and_grad(dlrm.loss, model, batch)
+                _, want = steps.value_and_grad(dlrm.loss, cpu, cpu_batch)
+                for (path, g), w in zip(leaves_with_paths(got), leaves(want)):
+                    d = g.cpu() - w
+                    err = {"max": float(d.abs().max()) / max(float(w.abs().max()), 1e-30),
+                           "norm": float(d.norm()) / max(float(w.norm()), 1e-30)}
+                    grad_err["/".join(path)] = err
+                    if err["max"] > 1e-3 or err["norm"] > 1e-3:
+                        failures.append(f"step-1 gradient of {'/'.join(path)}: {err}")
+                del got, want
+            gm = step(model, opt, batch)
+            cm = step(cpu, cpu_opt, cpu_batch)
+            for key, errs in (("loss", loss_err), ("grad_norm", norm_err)):
+                err = abs(float(gm[key]) / float(cm[key]) - 1)
+                errs.append(err)
+                if err > 1e-4:
+                    failures.append(f"step {i} {key}: rtol {err}")
+        agreement = {"steps": 5, "step1_relu_sign_flips": flips, "step1_grad_rel_err": grad_err,
+                     "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err}
+        result["cpu_agreement"] = agreement
+        expect(not failures, "train 5K: the card differs from the CPU beyond tolerance: "
+               + "; ".join(failures))
+
+
 def make_data(np, rows: dict) -> dict:
     """The main path's feeds, made from fixed seeds."""
     from repro_torch.data import synth
@@ -868,7 +1268,7 @@ def make_data(np, rows: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,golden,main")
+    ap.add_argument("--phases", default="kernels,golden,main,train")
     ap.add_argument("--out", default=None,
                     help="also write the kernel summary and every printed record to this JSON file")
     ap.add_argument("--rehearse", action="store_true",
@@ -890,9 +1290,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smoke = Smoke(torch, np, args.rehearse)
     device = smoke.device()
-    records, main_launches = {}, None
+    records, main_launches, train_launches = {}, None, None
     rows = REHEARSAL_ROWS if args.rehearse else ROWS
-    data = make_data(np, rows) if phases & {"kernels", "main"} else None
+    data = make_data(np, rows) if phases & {"kernels", "main", "train"} else None
     if "kernels" in phases:
         records = smoke.kernels(data)
     if "golden" in phases:
@@ -903,21 +1303,28 @@ def main(argv=None) -> int:
             for name in PATH_KERNELS:
                 expect(sum(m[name] for m in main_launches.values()) > 0,
                        f"main path: {name} was never launched")
+    if "train" in phases:
+        train_launches = {tag: smoke.train(data, tag) for tag in RANGES}
+        if not args.rehearse:
+            for name in TRAIN_KERNELS:
+                expect(sum(m[name] for m in train_launches.values()) > 0,
+                       f"train path: {name} was never launched")
 
+    # launches on the paths: the main phase's and the train phase's, per range
+    paths = [m for m in (main_launches, train_launches) if m is not None]
     kernels = []
     for key, rec in records.items():
         name, _, tag = key.partition("@")
         replaces, source = TPU_KERNELS[name]
-        if main_launches is None:
-            n = None
-        else:
-            n = sum(m[name] for t, m in main_launches.items() if t == tag or not tag)
+        n = None
+        if paths:
+            n = sum(m[name] for p in paths for t, m in p.items() if t == tag or not tag)
         kernels.append({
             "name": key, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": n,
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "call_ms", "ms_from")},
-            "on_main_path": name in PATH_KERNELS, "shape": rec["shape"],
+            "on_main_path": name in PATH_KERNELS + TRAIN_KERNELS, "shape": rec["shape"],
         })
     seconds = time.perf_counter() - t_start
     if args.out:

@@ -1,12 +1,14 @@
-"""Carry the pipeline's learned parameters and its plan between packages.
+"""Carry learned state, plans and weights between packages.
 
-The system has no model weights: what loop ① learns is the
-:class:`~repro_torch.core.vocab.VocabState` (first positions, row count
-and the optional count plane) and what loop ② serves is the finalized
-:class:`~repro_torch.core.vocab.Vocabulary`. These functions move both to
-and from numpy, so a state that the JAX package's loop ① built continues
-in the port's, and the reverse. :func:`plan_from_reference` turns the JAX
-package's preprocessing plan into the port's, so both compile one plan.
+What loop ① learns is the :class:`~repro_torch.core.vocab.VocabState`
+(first positions, row count and the optional count plane) and what loop ②
+serves is the finalized :class:`~repro_torch.core.vocab.Vocabulary`.
+These functions move both to and from numpy, so a state that the JAX
+package's loop ① built continues in the port's, and the reverse.
+:func:`plan_from_reference` turns the JAX package's preprocessing plan
+into the port's, so both compile one plan. The DLRM's parameters and its
+AdamW state move as the JAX package's trees of numpy arrays, so both
+packages train from the same weights.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import torch
 
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import vocab as vocab_lib
+from repro_torch.models import dlrm as dlrm_lib
+from repro_torch.train.tree import tree_map
 
 
 def _int32(x, name: str, ndim: int, device) -> torch.Tensor:
@@ -79,3 +83,58 @@ def plan_from_reference(plan) -> plan_lib.PreprocPlan:
             for c in plan.columns
         )
     )
+
+
+def _float32(x, name: str) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype != np.float32:
+        raise TypeError(f"{name}: expected float32, got {arr.dtype}")
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def dlrm_params_from_numpy(tree, *, device="cuda"):
+    """The JAX package's DLRM parameter tree (``{"tables", "bottom": [{"w",
+    "b"}, ...], "top": [...]}`` of float32 arrays) → a port ``DLRM`` on
+    ``device`` with those weights; its config is read off the shapes."""
+    n_sparse, vocab_range, embed_dim = np.shape(tree["tables"])
+    cfg = dlrm_lib.DLRMConfig(
+        n_dense=int(np.shape(tree["bottom"][0]["w"])[0]),
+        n_sparse=int(n_sparse),
+        vocab_range=int(vocab_range),
+        embed_dim=int(embed_dim),
+        bottom_mlp=tuple(int(np.shape(l["w"])[1]) for l in tree["bottom"]),
+        top_mlp=tuple(int(np.shape(l["w"])[1]) for l in tree["top"]),
+    )
+    model = dlrm_lib.DLRM(cfg, device=device)
+
+    def load(p, x):
+        t = _float32(x, "DLRM parameter")
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"DLRM parameter of shape {tuple(t.shape)}, expected "
+                             f"{tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(t)
+
+    tree_map(load, model.params_tree(), tree)
+    return model
+
+
+def dlrm_params_to_numpy(model) -> dict:
+    """A port ``DLRM`` → its parameters as the JAX package's tree of float32
+    numpy arrays."""
+    return tree_map(lambda p: p.detach().cpu().numpy(), model.params_tree())
+
+
+def adamw_state_from_numpy(state, *, device="cuda") -> dict:
+    """The JAX package's AdamW state (``{"m", "v", "step"}``, ``m`` and
+    ``v`` mirroring the parameter tree) → the port's, on ``device``."""
+    def moment(x):
+        return _float32(x, "AdamW moment").to(device)
+
+    return {"m": tree_map(moment, state["m"]), "v": tree_map(moment, state["v"]),
+            "step": _int32(state["step"], "step", 0, device)}
+
+
+def adamw_state_to_numpy(state: dict) -> dict:
+    """The port's AdamW state → numpy arrays in the JAX package's tree."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), state)

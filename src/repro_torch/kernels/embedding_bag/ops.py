@@ -1,0 +1,108 @@
+"""Public wrapper of the embedding-gather kernels (csrc/embedding_bag.cu).
+
+``embedding_gather(tables, ids)`` is a ``torch.autograd.Function``: its
+forward gathers one table row per (row, column) and its backward computes
+the dense gradient of the tables. On CUDA tensors each launches its kernel,
+once per call, at every table size (the reference's 8 MiB VMEM cutoff has
+no counterpart: the tables stay in device memory), and a failed build or
+launch raises. On CPU tensors each takes its plain version (``ref.py``).
+The backward is deterministic on the card: the same inputs give the same
+bits on every run.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.embedding_bag import ref
+
+_P, _I = _build.PTR, _build.INT
+KERNEL = _build.Kernel("embedding_bag", "embedding_gather", [_P, _P, _P, _I, _I, _I, _I, _I])
+KERNEL_BACKWARD = _build.Kernel(
+    "embedding_bag", "embedding_gather_backward", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+)
+# One KERNEL_BACKWARD launch issues a memset of the dense gradient, then
+# the sort, tile and fixup kernels.
+_TILE = 32  # sorted positions per warp of the tile kernel
+
+
+def _check_sizes(batch: int, n_cols: int, vocab_range: int) -> None:
+    if batch * n_cols >= 2**31 or n_cols * vocab_range >= 2**31:
+        raise ValueError(
+            f"batch {batch}, {n_cols} columns, vocab {vocab_range}: the kernels take "
+            "fewer than 2**31 (row, column) pairs and table rows"
+        )
+
+
+def _gather(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    n_cols, vocab_range, dim = tables.shape
+    dev = tables.device
+    _build.check(tables, "tables", torch.float32)
+    _build.check(ids, "ids", torch.int32, device=dev)
+    if ids.dim() != 2 or ids.shape[1] != n_cols:
+        raise ValueError(f"ids: expected [batch, {n_cols}], got {tuple(ids.shape)}")
+    batch = int(ids.shape[0])
+    _check_sizes(batch, n_cols, vocab_range)
+    out = torch.empty((batch, n_cols, dim), dtype=torch.float32, device=dev)
+    if batch and n_cols and dim:
+        if vocab_range == 0:
+            raise ValueError("tables: an empty vocabulary has no row to gather")
+        vec4 = dim % 4 == 0 and tables.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+        p = _build.ptr
+        KERNEL.launch(dev, p(tables), p(ids), p(out), batch, n_cols, vocab_range, dim, int(vec4))
+    return out
+
+
+def _gather_backward(grad_out: torch.Tensor, ids: torch.Tensor, vocab_range: int) -> torch.Tensor:
+    batch, n_cols, dim = grad_out.shape
+    dev = grad_out.device
+    _build.check(grad_out, "grad_out", torch.float32)
+    _build.check(ids, "ids", torch.int32, (batch, n_cols), dev)
+    _check_sizes(batch, n_cols, vocab_range)
+    padded = 1 << max(batch - 1, 0).bit_length()
+    n_tiles = -(-batch // _TILE)
+    grad = torch.empty((n_cols, vocab_range, dim), dtype=torch.float32, device=dev)
+    sorted_keys = torch.empty((n_cols, padded), dtype=torch.int64, device=dev)
+    partials = torch.empty((2, n_cols, n_tiles, dim), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    KERNEL_BACKWARD.launch(
+        dev, p(grad), p(grad_out), p(ids), p(sorted_keys), p(partials),
+        batch, n_cols, vocab_range, dim, padded,
+    )
+    return grad
+
+
+class EmbeddingGather(torch.autograd.Function):
+    """``tables [n_cols, V, dim]``, ``ids [batch, n_cols]`` → ``[batch,
+    n_cols, dim]``, differentiable in ``tables``; the kernels on CUDA
+    tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, tables, ids):
+        ctx.save_for_backward(ids)
+        ctx.vocab_range = int(tables.shape[1])
+        if tables.device.type == "cpu":
+            return ref.embedding_gather(tables, ids)
+        return _gather(tables, ids)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (ids,) = ctx.saved_tensors
+        return embedding_gather_backward(grad_out.contiguous(), ids, ctx.vocab_range), None
+
+
+def embedding_gather(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """tables f32 [n_cols, vocab, dim]; ids int32 [batch, n_cols]
+    → f32 [batch, n_cols, dim], the reference's public layout."""
+    return EmbeddingGather.apply(tables, ids)
+
+
+def embedding_gather_backward(
+    grad_out: torch.Tensor, ids: torch.Tensor, vocab_range: int
+) -> torch.Tensor:
+    """The dense gradient of the tables, outside autograd: the backward
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if grad_out.device.type == "cpu":
+        return ref.embedding_gather_backward(grad_out, ids, vocab_range)
+    return _gather_backward(grad_out, ids, vocab_range)

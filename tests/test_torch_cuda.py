@@ -15,6 +15,7 @@ import pytest
 import torch
 from chip_smoke import hostile_rows
 
+from repro_torch.configs import piper_dlrm as tcfg
 from repro_torch.core import pipeline as P
 from repro_torch.core import plan as tplan
 from repro_torch.core import vocab as tvocab
@@ -23,6 +24,8 @@ from repro_torch.kernels.decode_utf8 import ops as dops
 from repro_torch.kernels.decode_utf8 import ref as dref
 from repro_torch.kernels.dense_xform import ops as dxops
 from repro_torch.kernels.dense_xform import ref as dxref
+from repro_torch.kernels.embedding_bag import ops as ebops
+from repro_torch.kernels.embedding_bag import ref as ebref
 from repro_torch.kernels.fused_decode_vocab import ops as fdvops
 from repro_torch.kernels.fused_decode_vocab import ref as fdvref
 from repro_torch.kernels.fused_decode_xform import ops as fdxops
@@ -33,6 +36,10 @@ from repro_torch.kernels.fused_xform import ops as fxops
 from repro_torch.kernels.fused_xform import ref as fxref
 from repro_torch.kernels.vocab import ops as vops
 from repro_torch.kernels.vocab import ref as vref
+from repro_torch.models import dlrm as tdlrm
+from repro_torch.train import optimizer as topt
+from repro_torch.train import steps as tsteps
+from repro_torch.train.tree import leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -317,3 +324,138 @@ def test_use_kernels_pipeline_on_card_matches_cpu(cuda, criteo_small, fmt):
         for f in ("label", "sparse", "valid"):
             assert torch.equal(getattr(g, f).cpu(), getattr(c, f))
         torch.testing.assert_close(g.dense.cpu(), c.dense, rtol=1e-6, atol=0)
+
+
+def _embedding_inputs(cuda, n_cols, vocab, dim, batch, seed=0, hot=0.3, out_of_range=False,
+                      tables=True):
+    """Tables (or None), ids and an output gradient on the card; a share
+    ``hot`` of the rows of each column hold one id, so its run of equal ids
+    spans many 32-row tiles of the gradient kernel (Zipf-like keys, as
+    Piper's)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (batch, n_cols)).astype(np.int32)
+    ids[rng.random((batch, n_cols)) < hot] = vocab // 2
+    if out_of_range and batch >= 2 and n_cols >= 3:
+        ids[0, :3] = [-1, vocab, vocab + 7]
+        ids[batch - 1, :3] = [-vocab - 3, 2 * vocab, -2]
+    gen = torch.Generator(cuda).manual_seed(seed)
+    t = torch.randn((n_cols, vocab, dim), generator=gen, device=cuda) if tables else None
+    grad_out = torch.randn((batch, n_cols, dim), generator=gen, device=cuda)
+    return t, torch.from_numpy(ids).to(cuda), grad_out
+
+
+def _sum_bound(grad_out, ids, vocab):
+    """|kernel − float64 sum| ≤ (n−1)·2^-24·Σ|terms| per element, n the most
+    rows that add into one gradient row: the bound of any float32 order."""
+    n = max(int(torch.unique(ebref.wrap_ids(ids[:, c], vocab), return_counts=True)[1].max())
+            for c in range(ids.shape[1])) if ids.numel() else 1
+    abs_sum = ebref.embedding_gather_backward(grad_out.abs(), ids, vocab, dtype=torch.float64)
+    return abs_sum.mul_(max(n - 1, 1) * 2.0**-24)
+
+
+@pytest.mark.parametrize("shape", [(26, 5000, 64, 4096), (26, 1_000_000, 64, 512),
+                                   (3, 11, 5, 40), (4, 97, 8, 1), (2, 7, 64, 33)], ids=str)
+@pytest.mark.parametrize("out_of_range", [False, True], ids=["in_range", "out_of_range"])
+def test_embedding_gather_kernel_bit_exact(cuda, shape, out_of_range):
+    tables, ids, _ = _embedding_inputs(cuda, *shape, out_of_range=out_of_range)
+    got = ebops.embedding_gather(tables, ids)
+    assert got.shape == (shape[3], shape[0], shape[2]) and got.device == tables.device
+    assert torch.equal(got, ebref.embedding_gather(tables, ids))
+
+
+def test_embedding_gather_kernel_unaligned_takes_scalar_path(cuda):
+    """A table 4 bytes off a 16-byte boundary gathers float by float."""
+    _, ids, _ = _embedding_inputs(cuda, 3, 11, 8, 40)
+    flat = torch.randn(3 * 11 * 8 + 1, device=cuda)
+    tables = flat[1:].view(3, 11, 8)
+    assert tables.data_ptr() % 16 == 4
+    assert torch.equal(ebops.embedding_gather(tables, ids), ebref.embedding_gather(tables, ids))
+
+
+@pytest.mark.parametrize("shape", [(26, 5000, 64, 4096), (26, 1_000_000, 64, 4096),
+                                   (4, 50, 64, 5000), (3, 11, 5, 40), (2, 1, 8, 300),
+                                   (4, 97, 8, 1), (2, 7, 64, 33), (3, 9, 4, 0)], ids=str)
+@pytest.mark.parametrize("out_of_range", [False, True], ids=["in_range", "out_of_range"])
+def test_embedding_gather_backward_kernel_matches_float64(cuda, shape, out_of_range):
+    """Against the plain gradient summed in float64, within the float32
+    bound of ``_sum_bound``; ids out of range after the wrap add nothing;
+    two launches on the same inputs give the same bits. (4, 50, 64, 5000)
+    sorts in device memory (more than 4096 rows), (2, 1, 8, 300) sums every
+    row of a column into one table row."""
+    n_cols, vocab, dim, batch = shape
+    _, ids, grad_out = _embedding_inputs(cuda, *shape, seed=1, out_of_range=out_of_range,
+                                         tables=False)
+    got = ebops.embedding_gather_backward(grad_out, ids, vocab)
+    again = ebops.embedding_gather_backward(grad_out, ids, vocab)
+    assert got.shape == (n_cols, vocab, dim) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    del again  # at 1M each is 6.66 GB
+    want = ebref.embedding_gather_backward(grad_out, ids, vocab, dtype=torch.float64)
+    assert bool(((want == 0) <= (got == 0)).all())  # untouched rows stay exactly 0
+    delta = got.double()
+    del got
+    delta.sub_(want).abs_()
+    del want
+    assert bool((delta <= _sum_bound(grad_out, ids, vocab)).all())
+
+
+def test_embedding_gather_autograd_launches_each_kernel_once(cuda):
+    tables, ids, grad_out = _embedding_inputs(cuda, 26, 257, 16, 300)
+    tables.requires_grad_()
+    ebops.KERNEL.launches = ebops.KERNEL_BACKWARD.launches = 0
+    out = ebops.embedding_gather(tables, ids)
+    out.backward(grad_out)
+    assert (ebops.KERNEL.launches, ebops.KERNEL_BACKWARD.launches) == (1, 1)
+    want = ebref.embedding_gather_backward(grad_out, ids, 257, dtype=torch.float64)
+    assert bool(((tables.grad.double() - want).abs() <= _sum_bound(grad_out, ids, 257)).all())
+
+
+def test_embedding_wrappers_check_their_inputs(cuda):
+    tables, ids, grad_out = _embedding_inputs(cuda, 3, 11, 8, 40)
+    with pytest.raises(TypeError, match="int32"):
+        ebops.embedding_gather(tables, ids.long())
+    with pytest.raises(TypeError, match="float32"):
+        ebops.embedding_gather(tables.double(), ids)
+    with pytest.raises(ValueError, match="ids"):
+        ebops.embedding_gather(tables, ids[:, :2].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ebops.embedding_gather(tables, ids.t().contiguous().t())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ebops.embedding_gather(tables, ids.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        ebops.embedding_gather_backward(grad_out, ids[:-1].contiguous(), 11)
+    with pytest.raises(TypeError, match="float32"):
+        ebops.embedding_gather_backward(grad_out.double(), ids, 11)
+
+
+def test_dlrm_train_step_on_card_matches_cpu(cuda):
+    """One train step of SMOKE at full width on the card: one forward and
+    one backward launch; the loss within rtol 1e-5 and every gradient within
+    1e-5 of its largest entry of the same step on the CPU from the same
+    weights (float32 sums in another order; TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tcfg.SMOKE.model
+    gpu = tdlrm.DLRM(cfg, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    cpu = tdlrm.DLRM(cfg, device="cpu")
+    with torch.no_grad():
+        for a, b in zip(leaves(cpu.params_tree()), leaves(gpu.params_tree())):
+            a.copy_(b.cpu())
+    rng = np.random.default_rng(0)
+    batch = {"dense": np.log1p(rng.integers(0, 3000, (512, 13))).astype(np.float32),
+             "sparse": rng.integers(0, cfg.vocab_range, (512, 26)).astype(np.int32),
+             "label": rng.integers(0, 2, 512).astype(np.int32)}
+    gb = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    cb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    want_loss, want = tsteps.value_and_grad(tdlrm.loss, cpu, cb)
+    ebops.KERNEL.launches = ebops.KERNEL_BACKWARD.launches = 0
+    got_loss, got = tsteps.value_and_grad(tdlrm.loss, gpu, gb)
+    assert (ebops.KERNEL.launches, ebops.KERNEL_BACKWARD.launches) == (1, 1)
+    torch.testing.assert_close(got_loss.cpu(), want_loss, rtol=1e-5, atol=0)
+    for g, w in zip(leaves(got), leaves(want)):
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    step = tsteps.make_tabular_train_step(tdlrm.loss, topt.AdamWConfig())
+    state = topt.adamw_init(gpu.params_tree())
+    metrics = step(gpu, state, gb)
+    assert all(v.device.type == "cuda" and bool(torch.isfinite(v)) for v in metrics.values())
+    assert int(state["step"]) == 1

@@ -24,6 +24,26 @@ buf, _ = synth.make_dataset(synth.SynthConfig(rows=50, seed=3))
 pipe = P.PiperPipeline(P.PipelineConfig(chunk_bytes=8192, max_rows_per_chunk=64, device="cpu"))
 outs = list(pipe.run_stream(lambda: synth.chunk_stream(buf, 8192)))
 assert sum(int(o.valid.sum()) for o in outs) == 50
+
+# a SMOKE DLRM on the CPU: one train step on Piper's rows, one checkpoint
+import tempfile
+import torch
+from repro_torch.configs import piper_dlrm
+from repro_torch.models import dlrm
+from repro_torch.train import checkpoint, input_pipeline, optimizer, steps
+
+model = dlrm.DLRM(piper_dlrm.SMOKE.model, device="cpu", generator=torch.Generator().manual_seed(0))
+opt = optimizer.adamw_init(model.params_tree())
+batch = next(iter(input_pipeline.TrainInputPipeline(outs, batch_rows=32, n_steps=1)))
+metrics = steps.make_tabular_train_step(dlrm.loss, optimizer.AdamWConfig())(model, opt, batch)
+assert bool(torch.isfinite(metrics["loss"]))
+tree = {"params": model.params_tree(), "opt": opt, "extra": {"vocab": pipe.build_state_stream(
+    synth.chunk_stream(buf, 8192))}}
+with tempfile.TemporaryDirectory() as root:
+    checkpoint.save(root, 1, tree)
+    back = checkpoint.restore(root, checkpoint.latest_step(root), tree, device="cpu")
+from repro_torch.train.tree import leaves
+assert all(torch.equal(a, b.detach()) for a, b in zip(leaves(back), leaves(tree)))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
 """
@@ -36,6 +56,8 @@ def _env():
 
 
 def test_runs_without_jax_or_repro_in_sys_modules():
+    """Piper's two loops, then a DLRM train step and a checkpoint round trip,
+    in a process that never imports JAX or the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _RUN_PORT_ONLY], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=300, check=True,
