@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,golden,main,train] [--out results.json]
+    python3 chip_smoke.py [--phases kernels,golden,main,train,serve] [--out results.json]
     python3 chip_smoke.py --rehearse      # plumbing only, on the CPU
 
 Phases, each of which passes or ends the run with a non-zero exit:
@@ -40,6 +40,19 @@ Phases, each of which passes or ends the run with a non-zero exit:
      the same seed must end in bit-identical weights and optimizer state.
      Prints ms per step, rows/s, the device's busy share of one profiled
      step and the peak device memory.
+  6. serve — gemma-2b at its published width and depth (18 layers, random
+     weights from a seeded generator on the card, f32 at rest, bf16
+     compute, TF32 off). The flash-attention kernel against its plain
+     version at the layer's shapes (bf16 at 2e-2, f32 at 2e-5, an MHA head
+     map, a non-causal call), timed beside scaled_dot_product_attention.
+     A prefill of 4 x 4096 tokens (PiperTokenBatches over the sparse ids of
+     the 5K utf8 run) must launch the kernel exactly once per layer and
+     agree with the same prefill through attn_impl="chunked"; a prefill of
+     1 x 32768 tokens runs through the kernel alone, timed; ServeEngine
+     (4 slots, cache 1024) serves 8 requests of 64 prompt tokens and 16 new
+     ones, and one request's logits at its last prompt position must agree
+     with the prefill step on that prompt. Prints prefill tokens/s, decode
+     ms per engine step, tokens/s and the peak device memory.
 
 The last lines are the {"kernels": [...]} summary, the nvidia-smi name
 and power limit, and {"ok": true, "device": {...}}. Without a CUDA device,
@@ -66,6 +79,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
+TENSOR_CORE_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 TPU_KERNELS = {  # kernel → (replaced Pallas kernel, the port's source)
     "decode_scan": ("src/repro/kernels/decode_utf8/kernel.py:195", "decode_utf8.cu"),
     "fused_genvocab": ("src/repro/kernels/fused_vocab/kernel.py:113", "fused_vocab.cu"),
@@ -83,6 +97,7 @@ TPU_KERNELS = {  # kernel → (replaced Pallas kernel, the port's source)
     "embedding_gather_backward": (
         "none: the JAX package's gradient is XLA's scatter-add through "
         "src/repro/kernels/embedding_bag/ref.py:10", "embedding_bag.cu"),
+    "flash_attention": ("src/repro/kernels/flash_attention/kernel.py:87", "flash_attention.cu"),
 }
 # The kernels the port's main paths run (the decoded route, the bytes-in
 # route of use_fused_decode=True, and the crossed plan's use_kernels route);
@@ -95,6 +110,8 @@ PATH_KERNELS = ("decode_scan", "fused_genvocab", "fused_genvocab_slabs", "fused_
 # the default hints, then the DLRM's embedding gather and its gradient.
 TRAIN_KERNELS = ("decode_scan", "fused_genvocab", "fused_transform", "embedding_gather",
                  "embedding_gather_backward")
+# The serve phase's path: the prefill's attention layers.
+SERVE_KERNELS = ("flash_attention",)
 RANGES = {"5K": 5000, "1M": 1_000_000}
 # The train phase: batch rows and steps per range; a CPU rehearsal trains
 # smaller batches and stands a 20000-row table in for the 1M one.
@@ -106,6 +123,27 @@ MAX_ROWS = 1 << 14
 # Rows of the main path's feeds: on the card, and in a CPU rehearsal.
 ROWS = {"utf8": 1 << 18, "binary": 1 << 22}
 REHEARSAL_ROWS = {"utf8": 8000, "binary": 40000}
+# The serve phase: prefill (batch, seq) shapes by tag, and the engine's
+# traffic. On the card gemma-2b's CONFIG, in a rehearsal its SMOKE config
+# at shorter sequences.
+PREFILLS = {"B4xS4096": (4, 4096), "B1xS32768": (1, 32768)}
+REHEARSAL_PREFILLS = {"B4xS4096": (4, 256), "B1xS32768": (1, 1024)}
+ENGINE = {"slots": 4, "cache_len": 1024, "requests": 8, "prompt_len": 64, "new_tokens": 16}
+# Last-position logits of two bf16 routes, held as |Δ|₂ ≤ 5e-2·|ref|₂: each
+# layer rounds its attention output or residual sum to bf16 (a relative
+# step of 2^-9) at other points on the two routes, which over 18 layers
+# adds up as a random walk to about sqrt(18..36)·2^-9 ≈ 1e-2.
+SERVE_REL_L2 = 5e-2
+# The kernel against ref.mha, besides the reference's elementwise 2e-2 /
+# 2e-5: each (batch, head, FLASH_SEGMENT_ROWS query rows) holds
+# |Δ|₂ ≤ FLASH_REL_L2·|ref|₂. On N(0, 1) inputs a causal row n's output is
+# about e^0.5/sqrt(n) per element, so at 32K the elementwise bound is half
+# a typical value; a kernel that drops or repeats one 32-key tile is off by
+# about sqrt(32/n) of it, 3.1e-2 in the last rows at 32K, 8.8e-2 at 4096.
+# A sound bf16 kernel reads about 2^-9 (the rounding of both outputs and
+# of P), float32 about 1e-6 (summation order).
+FLASH_SEGMENT_ROWS = 256
+FLASH_REL_L2 = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
 
 
 class SmokeFailure(Exception):
@@ -117,6 +155,7 @@ def counters() -> dict:
     from repro_torch.kernels.decode_utf8 import ops as dops
     from repro_torch.kernels.dense_xform import ops as dxops
     from repro_torch.kernels.embedding_bag import ops as ebops
+    from repro_torch.kernels.flash_attention import ops as faops
     from repro_torch.kernels.fused_decode_vocab import ops as fdvops
     from repro_torch.kernels.fused_decode_xform import ops as fdxops
     from repro_torch.kernels.fused_vocab import ops as fvops
@@ -129,7 +168,8 @@ def counters() -> dict:
             "fused_decode_genvocab": fdvops.KERNEL, "fused_decode_transform": fdxops.KERNEL,
             "genvocab": vops.KERNEL_GENVOCAB, "apply_vocab": vops.KERNEL_APPLY,
             "dense_transform": dxops.KERNEL, "embedding_gather": ebops.KERNEL,
-            "embedding_gather_backward": ebops.KERNEL_BACKWARD}
+            "embedding_gather_backward": ebops.KERNEL_BACKWARD,
+            "flash_attention": faops.KERNEL}
 
 
 def reset_counters(kernels: dict) -> None:
@@ -150,11 +190,11 @@ def expect(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
+def bound(n_bytes: int, n_ops: int, ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     """Least time (ms) the card could take: bytes over the memory rate or
-    operations over the peak rate, whichever is larger."""
+    operations over the peak rate of their type, whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -218,7 +258,12 @@ class Smoke:
         """Two times of one call of ``fn``, averaged over ``reps`` calls:
 
         ``device_ms`` — the device time of the kernels the call launches,
-        summed from a torch.profiler trace (the kernel's own time);
+        summed from torch.profiler traces (the kernel's own time). A trace
+        now and then comes back with no device events, or with some
+        launches missing, so it is used only when two traces in a row hold
+        the same count of each device kernel, each a multiple of ``reps``,
+        and at least one device kernel for each launch the wrappers counted
+        during the trace; else None;
         ``call_ms`` — CUDA-event time per call, calls back to back, which
         also holds whatever host time the wrapper takes between launches.
         Both None in a rehearsal."""
@@ -239,18 +284,29 @@ class Smoke:
         end.record()
         end.synchronize()
         call_ms = start.elapsed_time(end) / reps
-        for _ in range(3):  # now and then a trace comes back with no device events
+        kernels = counters()
+        device_ms, previous, passes = None, None, []
+        for _ in range(4):
+            reset_counters(kernels)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
-            device_us = sum(
-                e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-            )
-            if device_us:
+            launched = sum(k.launches for k in kernels.values())
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            counts = {e.key: e.count for e in events}
+            passes.append({"launched": launched, "counts": {k[:48]: c for k, c in counts.items()}})
+            whole = (events and all(c % reps == 0 for c in counts.values())
+                     and sum(counts.values()) >= launched)
+            this = (counts, sum(e.self_device_time_total for e in events)) if whole else None
+            if this and previous and this[0] == previous[0]:
+                device_ms = (this[1] + previous[1]) / 2 / 1e3 / reps
                 break
-        return {"device_ms": device_us / 1e3 / reps if device_us else None, "call_ms": call_ms}
+            previous = this
+        if device_ms is None:  # what the rejected traces held, for the record
+            return {"device_ms": None, "call_ms": call_ms, "rejected_traces": passes}
+        return {"device_ms": device_ms, "call_ms": call_ms}
 
     def times(self, kernel, plain, library=None, plain_reps: int = 20) -> dict:
         """The kernel's, its plain version's and the library call's times:
@@ -266,10 +322,14 @@ class Smoke:
         def source(t):
             return "profiler" if t["device_ms"] is not None else "cuda_events"
 
+        rejected = {key: t["rejected_traces"] for key, t in (("ms", k), ("plain_ms", p),
+                                                               ("library_ms", lib))
+                    if t.get("rejected_traces")}
         return {"ms": pick(k), "plain_ms": pick(p), "library_ms": pick(lib),
                 "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"],
                 "library_call_ms": lib["call_ms"],
-                "ms_from": {"ms": source(k), "plain_ms": source(p), "library_ms": source(lib)}}
+                "ms_from": {"ms": source(k), "plain_ms": source(p), "library_ms": source(lib)},
+                **({"rejected_traces": rejected} if rejected else {})}
 
     def wall_seconds(self, fn, n: int = 5) -> list[float]:
         """Host-clock seconds of each of ``n`` runs of ``fn`` (one in a
@@ -1248,6 +1308,260 @@ class Smoke:
         expect(not failures, "train 5K: the card differs from the CPU beyond tolerance: "
                + "; ".join(failures))
 
+    # -- phase 6 -------------------------------------------------------- #
+    def serve(self, data) -> tuple[dict, dict]:
+        """gemma-2b serving: the kernel against its plain version, two
+        prefills with their launches counted, the engine. Returns (kernel
+        records by entry name, kernel → launches per prefill tag). Prints
+        what it measured, also when a check fails."""
+        result = {"phase": "serve"}
+        try:
+            return self._serve(data, result)
+        finally:
+            emit(result)
+
+    def _rel_l2(self, got, want) -> float:
+        d = (got.float() - want.float()).norm()
+        return float(d / want.float().norm().clamp_min(1e-30))
+
+    def _segment_rel_l2(self, got, want) -> float:
+        """The largest |Δ|₂ / |want|₂ over (batch, head, FLASH_SEGMENT_ROWS
+        query rows) of two [B, H, S, D] outputs."""
+        b, h, s, d = want.shape
+        rows = min(FLASH_SEGMENT_ROWS, s)
+        shape = (b, h, s // rows, rows * d)
+        diff = (got.float() - want.float()).reshape(shape).norm(dim=-1)
+        return float((diff / want.float().reshape(shape).norm(dim=-1).clamp_min(1e-30)).max())
+
+    def _flash_checks(self, cfg, result: dict) -> dict:
+        """The kernel against ``ref.mha`` at the layer's shapes; returns
+        the largest bf16 error by (batch, seq)."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.kernels.flash_attention import ops as faops, ref as faref
+
+        b, s = 4, (4096 if not self.rehearse else 256)
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        gen = torch.Generator(dev).manual_seed(11)
+        cases = [  # (B, Hq, Hkv, S, dtype, causal, tolerance): the reference's
+            (b, hq, hkv, s, torch.bfloat16, True, 2e-2),
+            (b, hq, hkv, s, torch.float32, True, 2e-5),
+            (1, hq, hq, s, torch.bfloat16, True, 2e-2),   # Hq == Hkv
+            (b, hq, hkv, s, torch.bfloat16, False, 2e-2),  # not causal
+        ]
+        checks, errs = [], {}
+        for bb, h, hk, ss, dtype, causal, tol in cases:
+            q = torch.randn((bb, h, ss, d), generator=gen, device=dev).to(dtype)
+            k = torch.randn((bb, hk, ss, d), generator=gen, device=dev).to(dtype)
+            v = torch.randn((bb, hk, ss, d), generator=gen, device=dev).to(dtype)
+            got = faops.flash_attention(q, k, v, causal=causal)
+            self.sync()
+            want = faref.mha(q, k, v, causal=causal)
+            err = float((got.float() - want.float()).abs().max())
+            rel, rel_tol = self._segment_rel_l2(got, want), FLASH_REL_L2[str(dtype)]
+            shape = f"q [{bb}, {h}, {ss}, {d}], k/v [{bb}, {hk}, {ss}, {d}]"
+            checks.append({"shape": shape, "dtype": str(dtype), "causal": causal,
+                           "tolerance": tol, "max_abs_err": err,
+                           "segment_rel_l2": rel, "segment_rel_l2_tolerance": rel_tol})
+            expect(bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)),
+                   f"flash_attention {shape} {dtype} causal={causal}: beyond {tol}")
+            expect(rel <= rel_tol, f"flash_attention {shape} {dtype} causal={causal}: "
+                   f"relative L2 {rel} over {FLASH_SEGMENT_ROWS} rows > {rel_tol}")
+            if dtype == torch.bfloat16 and causal and hk == hkv:
+                errs[(bb, ss)] = (err, rel)
+            del q, k, v, got, want
+        result["kernel_checks"] = checks
+        return errs
+
+    def _flash_record(self, cfg, batch: int, seq: int, errs) -> dict:
+        """Times of the kernel, its plain version and SDPA at one prefill
+        shape (random bf16 q, k, v). ``errs`` is (max abs, segment relative
+        L2) from the checks at this shape; None at 32K, where the plain
+        version runs one query head at a time (all 8 heads' float32 logits
+        take 34 GB), and the errors are measured here."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.kernels.flash_attention import ops as faops, ref as faref
+
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        gen = torch.Generator(dev).manual_seed(12)
+        q = torch.randn((batch, hq, seq, d), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((batch, hkv, seq, d), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((batch, hkv, seq, d), generator=gen, device=dev).to(torch.bfloat16)
+        per_head = errs is None
+        err, rel = errs if errs else (0.0, 0.0)
+
+        def plain():
+            if per_head:
+                return [faref.mha(q[:, h:h + 1], k, v) for h in range(hq)]
+            return faref.mha(q, k, v)
+
+        if per_head:
+            got = faops.flash_attention(q, k, v)
+            rel_tol = FLASH_REL_L2[str(torch.bfloat16)]
+            for h in range(hq):
+                want = faref.mha(q[:, h:h + 1], k, v)
+                expect(bool(torch.allclose(got[:, h:h + 1].float(), want.float(), atol=2e-2,
+                                           rtol=2e-2)),
+                       f"flash_attention at [{batch}, {hq}, {seq}, {d}] head {h}: beyond 2e-2")
+                err = max(err, float((got[:, h:h + 1].float() - want.float()).abs().max()))
+                rel = max(rel, self._segment_rel_l2(got[:, h:h + 1], want))
+                expect(rel <= rel_tol, f"flash_attention at [{batch}, {hq}, {seq}, {d}] head "
+                       f"{h}: relative L2 {rel} over {FLASH_SEGMENT_ROWS} rows > {rel_tol}")
+            del got, want
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        ops = 4 * batch * hq * seq * seq * d // 2  # causal: half the products
+        io = (2 * batch * hq + 2 * batch * hkv) * seq * d * 2
+        b_ms, b_by = bound(io, ops, TENSOR_CORE_BF16_OPS_PER_S)
+        rec = {
+            "max_abs_err": err, "segment_rel_l2": rel,
+            **self.times(lambda: faops.flash_attention(q, k, v), plain,
+                         lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                         plain_reps=2 if per_head else 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+            "plain": "ref.mha, one query head at a time" if per_head else "ref.mha",
+            "shape": f"q [{batch}, {hq}, {seq}, {d}], k/v [{batch}, {hkv}, {seq}, {d}] bf16",
+        }
+        if rec["ms"]:
+            rec["tflops"] = ops / rec["ms"] / 1e9
+        return rec
+
+    def _serve(self, data, result: dict) -> tuple[dict, dict]:
+        torch, np, dev = self.torch, self.np, self.dev
+        from repro_torch.configs import gemma_2b
+        from repro_torch.core import pipeline as P
+        from repro_torch.data import loader
+        from repro_torch.models import lm
+        from repro_torch.serve import engine
+        from repro_torch.train import steps
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = gemma_2b.SMOKE if self.rehearse else gemma_2b.CONFIG
+        prefills = REHEARSAL_PREFILLS if self.rehearse else PREFILLS
+        if not self.rehearse:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        result.update(config=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
+                      allow_tf32={"cuda.matmul": torch.backends.cuda.matmul.allow_tf32,
+                                  "cudnn": torch.backends.cudnn.allow_tf32},
+                      tolerance_rel_l2=SERVE_REL_L2)
+        t_phase = time.perf_counter()
+        kernels = counters()
+
+        # the prompts: Piper's sparse ordinals of the 5K utf8 run
+        pipe = P.PiperPipeline(P.PipelineConfig(device=str(dev)))
+        outs = list(pipe.run_stream(lambda: iter(data["utf8_chunks"])))
+        sparse = torch.cat([o.sparse[o.valid] for o in outs]).cpu().numpy()
+        del outs
+
+        errs = self._flash_checks(cfg, result)
+        model = lm.LM(cfg, attn_impl="flash", device=dev)
+        params = model.init(torch.Generator(dev).manual_seed(0))
+        prefill = steps.make_prefill_step(model)
+        records, launches, prefill_stats = {}, {}, {}
+        for tag, (batch, seq) in prefills.items():
+            tokens = torch.from_numpy(
+                loader.PiperTokenBatches(sparse, cfg.vocab_size, batch, seq)(0)["tokens"]).to(dev)
+            reset_counters(kernels)
+            self.sync()
+            t0 = time.perf_counter()
+            logits = prefill(params, {"tokens": tokens})
+            self.sync()
+            first_s = time.perf_counter() - t0
+            got = {k: v.launches for k, v in kernels.items()}
+            launches[tag] = got
+            if not self.rehearse:
+                want = dict.fromkeys(kernels, 0)
+                want["flash_attention"] = cfg.n_layers
+                expect(got == want, f"serve prefill {tag}: launched "
+                       f"{ {k: v for k, v in got.items() if v} }, expected one flash_attention "
+                       f"per layer ({cfg.n_layers})")
+            expect(tuple(logits.shape) == (batch, cfg.vocab_size),
+                   f"serve prefill {tag}: logits of shape {tuple(logits.shape)}")
+            expect(bool(torch.isfinite(logits).all()), f"serve prefill {tag}: logits not finite")
+            secs = self.wall_seconds(lambda: prefill(params, {"tokens": tokens}), n=3)
+            med = statistics.median(secs)
+            stats = {"first_s": first_s, "seconds": secs, "ms_per_call": med * 1e3,
+                     "tokens_per_s": batch * seq / med,
+                     "launches": {k: v for k, v in got.items() if v}}
+            if tag == "B4xS4096":
+                # the same prefill through the chunked route, the reference's
+                chunked = steps.make_prefill_step(lm.LM(cfg, attn_impl="chunked", device=dev))
+                want = chunked(params, {"tokens": tokens})
+                rel = self._rel_l2(logits, want)
+                stats.update(vs_chunked_rel_l2=rel,
+                             vs_chunked_max_abs=float((logits.float() - want.float()).abs().max()),
+                             vs_chunked_argmax_agree=float(
+                                 (logits.argmax(-1) == want.argmax(-1)).float().mean()))
+                expect(rel <= SERVE_REL_L2, f"serve prefill {tag}: flash and chunked routes "
+                       f"differ by {rel} (relative L2) > {SERVE_REL_L2}")
+                del want
+            prof = self.profile(lambda: prefill(params, {"tokens": tokens}))
+            if prof is not None:
+                busy = sum(r["ms"] for r in prof)
+                stats.update(device_busy_share=busy / stats["ms_per_call"],
+                             profiled_call={"device_ms": busy, "top": prof[:8]})
+            prefill_stats[tag] = stats
+            del logits, tokens
+            records[f"flash_attention@{tag}"] = self._flash_record(
+                cfg, batch, seq, errs.get((batch, seq)))
+        result["prefill"] = prefill_stats
+
+        # the engine: 8 requests of Piper prompts, two waves of 4 slots
+        e = ENGINE
+        prompts = loader.PiperTokenBatches(sparse, cfg.vocab_size, e["requests"],
+                                           e["prompt_len"])(1)["tokens"]
+        eng = engine.ServeEngine(model, params, batch_slots=e["slots"], cache_len=e["cache_len"])
+        reqs = [engine.Request(prompt=p.tolist(), max_new_tokens=e["new_tokens"])
+                for p in prompts]
+        seen = []  # (slot 0's position, its logits) of each step
+        step = eng._step
+
+        def spy(p, state, token, pos):
+            out = step(p, state, token, pos)
+            seen.append((int(eng.slot_pos[0]), out[0][0].detach().clone()))
+            return out
+
+        eng._step = spy
+        for r in reqs:
+            eng.submit(r)
+        reset_counters(kernels)
+        self.sync()
+        t0 = time.perf_counter()
+        eng.run_until_drained()
+        self.sync()
+        engine_s = time.perf_counter() - t0
+        engine_launches = {k: v.launches for k, v in kernels.items() if v.launches}
+        expect(all(r.done and len(r.generated) == e["new_tokens"] for r in reqs),
+               f"serve engine: generated {[len(r.generated) for r in reqs]}, expected "
+               f"{e['new_tokens']} each")
+        n_tokens = sum(len(r.generated) for r in reqs)
+        last = [lg for pos, lg in seen if pos == e["prompt_len"] - 1][0]  # request 0's
+        want = prefill(params, {"tokens": torch.tensor(reqs[0].prompt, device=dev)[None]})[0]
+        rel = self._rel_l2(last, want)
+        result["engine"] = {
+            **e, "steps": len(seen), "seconds": engine_s, "ms_per_step": engine_s / len(seen) * 1e3,
+            "tokens_per_s": n_tokens / engine_s, "generated_tokens": n_tokens,
+            "launches": engine_launches, "vs_prefill_rel_l2": rel, "vs_prefill_argmax_agree": bool(
+                int(last.argmax()) == int(want.argmax())),
+            "request0_generated": reqs[0].generated}
+        expect(rel <= SERVE_REL_L2, f"serve engine: request 0's logits at its last prompt "
+               f"position differ from the prefill step's by {rel} > {SERVE_REL_L2}")
+        # where one more decode step's device time goes, and its busy share
+        token = torch.zeros(e["slots"], dtype=torch.int32, device=dev)
+        prof = self.profile(lambda: eng._step(params, eng.state, token, 0))
+        if prof is not None:
+            busy = sum(r["ms"] for r in prof)
+            result["engine"].update(
+                profiled_step={"device_ms": busy, "device_launches": sum(r["count"] for r in prof),
+                               "top": prof[:8]},
+                device_busy_share=busy / result["engine"]["ms_per_step"])
+        if not self.rehearse:
+            result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        result["seconds"] = time.perf_counter() - t_phase
+        result["kernels"] = records
+        return records, launches
+
 
 def make_data(np, rows: dict) -> dict:
     """The main path's feeds, made from fixed seeds."""
@@ -1268,7 +1582,7 @@ def make_data(np, rows: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,golden,main,train")
+    ap.add_argument("--phases", default="kernels,golden,main,train,serve")
     ap.add_argument("--out", default=None,
                     help="also write the kernel summary and every printed record to this JSON file")
     ap.add_argument("--rehearse", action="store_true",
@@ -1290,9 +1604,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smoke = Smoke(torch, np, args.rehearse)
     device = smoke.device()
-    records, main_launches, train_launches = {}, None, None
+    records, main_launches, train_launches, serve_launches = {}, None, None, None
     rows = REHEARSAL_ROWS if args.rehearse else ROWS
-    data = make_data(np, rows) if phases & {"kernels", "main", "train"} else None
+    data = make_data(np, rows) if phases & {"kernels", "main", "train", "serve"} else None
     if "kernels" in phases:
         records = smoke.kernels(data)
     if "golden" in phases:
@@ -1309,9 +1623,17 @@ def main(argv=None) -> int:
             for name in TRAIN_KERNELS:
                 expect(sum(m[name] for m in train_launches.values()) > 0,
                        f"train path: {name} was never launched")
+    if "serve" in phases:
+        serve_records, serve_launches = smoke.serve(data)
+        records.update(serve_records)
+        if not args.rehearse:
+            for name in SERVE_KERNELS:
+                expect(all(m[name] > 0 for m in serve_launches.values()),
+                       f"serve path: {name} was not launched in every prefill")
 
-    # launches on the paths: the main phase's and the train phase's, per range
-    paths = [m for m in (main_launches, train_launches) if m is not None]
+    # launches on the paths: the main phase's and the train phase's per range,
+    # the serve phase's per prefill
+    paths = [m for m in (main_launches, train_launches, serve_launches) if m is not None]
     kernels = []
     for key, rec in records.items():
         name, _, tag = key.partition("@")
@@ -1324,7 +1646,8 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": n,
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "call_ms", "ms_from")},
-            "on_main_path": name in PATH_KERNELS + TRAIN_KERNELS, "shape": rec["shape"],
+            "on_main_path": name in PATH_KERNELS + TRAIN_KERNELS + SERVE_KERNELS,
+            "shape": rec["shape"],
         })
     seconds = time.perf_counter() - t_start
     if args.out:

@@ -1,13 +1,58 @@
-"""Host data feeds for the PIPER engine.
+"""Host data feeds.
 
-Counterpart of ``repro/data/loader.py``; this slice carries only
-:class:`BinaryChunkFeed`, the paper's Config III stacked feed that
-``PiperPipeline.run_scan`` takes with ``input_format="binary"``.
+Counterpart of ``repro/data/loader.py``, so far:
+  * ``TokenBatches`` — deterministic synthetic LM token batches: the batch
+    of step *i* is a function of (seed, i).
+  * ``PiperTokenBatches`` — LM token windows over Piper's sparse ordinals,
+    the preprocessing → LM handoff.
+  * ``BinaryChunkFeed`` — the paper's Config III stacked feed that
+    ``PiperPipeline.run_scan`` takes with ``input_format="binary"``.
+The numpy logic is the reference's, so the same step gives the same
+tokens in both packages.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+class TokenBatches:
+    def __init__(self, vocab_size: int, batch: int, seq: int, seed: int = 0):
+        self.vocab_size = vocab_size
+        self.batch = batch
+        self.seq = seq
+        self.seed = seed
+
+    def __call__(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed, step))
+        return {
+            "tokens": rng.integers(
+                0, self.vocab_size, size=(self.batch, self.seq), dtype=np.int32
+            )
+        }
+
+
+class PiperTokenBatches:
+    """LM batches drawn from Piper-preprocessed tabular data.
+
+    The vocabulary-encoded sparse ordinals of consecutive rows are
+    concatenated into a token stream (ordinal space == LM vocab ids, taken
+    modulo ``vocab_size``) and cut into fixed-length windows.
+    """
+
+    def __init__(self, processed_sparse: np.ndarray, vocab_size: int, batch: int, seq: int):
+        stream = np.asarray(processed_sparse).reshape(-1).astype(np.int64) % vocab_size
+        self.stream = stream.astype(np.int32)
+        self.batch = batch
+        self.seq = seq
+
+    def __call__(self, step: int) -> dict:
+        n = self.batch * self.seq
+        start = (step * n) % max(len(self.stream) - n, 1)
+        window = self.stream[start : start + n]
+        if len(window) < n:
+            window = np.pad(window, (0, n - len(window)), mode="wrap")
+        return {"tokens": window.reshape(self.batch, self.seq)}
 
 
 class BinaryChunkFeed:

@@ -8,7 +8,8 @@ package's loop ① built continues in the port's, and the reverse.
 :func:`plan_from_reference` turns the JAX package's preprocessing plan
 into the port's, so both compile one plan. The DLRM's parameters and its
 AdamW state move as the JAX package's trees of numpy arrays, so both
-packages train from the same weights.
+packages train from the same weights; the language model's parameters
+move the same way (:func:`lm_params_from_numpy`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import vocab as vocab_lib
 from repro_torch.models import dlrm as dlrm_lib
+from repro_torch.models import lm as lm_lib
 from repro_torch.train.tree import tree_map
 
 
@@ -138,3 +140,45 @@ def adamw_state_from_numpy(state, *, device="cuda") -> dict:
 def adamw_state_to_numpy(state: dict) -> dict:
     """The port's AdamW state → numpy arrays in the JAX package's tree."""
     return tree_map(lambda t: t.detach().cpu().numpy(), state)
+
+
+def lm_params_from_numpy(tree, cfg, *, device="cuda"):
+    """The JAX package's ``LM.init`` tree for ``cfg`` (float32 arrays:
+    ``embed``, the ``blocks`` tuple of per-spec dicts stacked on a leading
+    ``n_superblocks`` axis, ``final_norm``, and ``lm_head`` when untied)
+    → the port's ``LM`` parameters on ``device``, superblock by superblock.
+    Every leaf's shape is checked against the port's own parameters."""
+    dev = lm_lib._resolve_device(device)
+    skeleton = lm_lib.LM(cfg, device="meta").init()
+    if len(tree["blocks"]) != len(cfg.superblock):
+        raise ValueError(f"{len(tree['blocks'])} stacked specs, expected {len(cfg.superblock)}")
+
+    def load(want, x, name):
+        t = _float32(x, name)
+        if tuple(t.shape) != tuple(want.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(want.shape)}")
+        return t.to(dev)
+
+    out = {}
+    for key in skeleton:
+        if key == "blocks":
+            continue
+        out[key] = tree_map(lambda w, x: load(w, x, key), skeleton[key], tree[key])
+    out["blocks"] = [
+        [tree_map(lambda w, x: load(w, np.asarray(x)[i], f"blocks[{j}][{i}]"), p, tree["blocks"][j])
+         for j, p in enumerate(sb)]
+        for i, sb in enumerate(skeleton["blocks"])
+    ]
+    return out
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The port's ``LM`` parameters → the JAX package's tree: float32 numpy
+    arrays, each spec's layers stacked on a leading ``n_superblocks`` axis."""
+    out = {k: tree_map(lambda t: t.detach().cpu().numpy(), v)
+           for k, v in params.items() if k != "blocks"}
+    out["blocks"] = tuple(
+        tree_map(lambda *ts: np.stack([t.detach().cpu().numpy() for t in ts]), *specs)
+        for specs in zip(*params["blocks"])
+    )
+    return out

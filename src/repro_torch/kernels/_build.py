@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = (
     "decode_utf8", "fused_vocab", "fused_xform", "fused_decode_vocab", "fused_decode_xform",
-    "vocab", "dense_xform", "embedding_bag",
+    "vocab", "dense_xform", "embedding_bag", "flash_attention",
 )
 # No --use_fast_math: it would replace log1pf, and the dense outputs are
 # held to rtol 1e-6.

@@ -1,8 +1,9 @@
-"""The train step of a tabular model.
+"""Train, prefill and serve step factories.
 
-Counterpart of ``repro/train/steps.py::make_tabular_train_step``. The
-language-model steps (``make_train_step``, ``make_prefill_step``,
-``make_serve_step``) come with the language-model path.
+Counterpart of ``repro/train/steps.py``: ``make_tabular_train_step`` for
+the DLRM, and ``make_prefill_step`` / ``make_serve_step`` for the
+language model. The LM's ``make_train_step`` comes with LM training
+(ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -49,3 +50,29 @@ def make_tabular_train_step(loss_fn, opt_cfg: opt_lib.AdamWConfig):
         return metrics
 
     return train_step
+
+
+def make_prefill_step(model):
+    """Prefill = trunk over the prompt + last-position head only (the full
+    [B,S,V] logits of ``forward`` are never needed at prefill).
+
+    ``prefill_step(params, batch) → logits [B, V]`` over ``batch["tokens"]``
+    int [B, S], without autograd."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch: dict, compute_dtype=torch.bfloat16) -> torch.Tensor:
+        x = model.hidden(params, batch["tokens"], compute_dtype)
+        return x[:, -1] @ model.head_weight(params).to(x.dtype)
+
+    return prefill_step
+
+
+def make_serve_step(model):
+    """``serve_step(params, state, token, pos) → (logits, state)``: one
+    decode step, without autograd."""
+
+    @torch.no_grad()
+    def serve_step(params, state, token, pos: int):
+        return model.decode_step(params, token, state, pos)
+
+    return serve_step

@@ -15,6 +15,7 @@ import pytest
 import torch
 from chip_smoke import hostile_rows
 
+from repro_torch.configs import gemma_2b as tgemma
 from repro_torch.configs import piper_dlrm as tcfg
 from repro_torch.core import pipeline as P
 from repro_torch.core import plan as tplan
@@ -26,6 +27,8 @@ from repro_torch.kernels.dense_xform import ops as dxops
 from repro_torch.kernels.dense_xform import ref as dxref
 from repro_torch.kernels.embedding_bag import ops as ebops
 from repro_torch.kernels.embedding_bag import ref as ebref
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.fused_decode_vocab import ops as fdvops
 from repro_torch.kernels.fused_decode_vocab import ref as fdvref
 from repro_torch.kernels.fused_decode_xform import ops as fdxops
@@ -37,8 +40,10 @@ from repro_torch.kernels.fused_xform import ref as fxref
 from repro_torch.kernels.vocab import ops as vops
 from repro_torch.kernels.vocab import ref as vref
 from repro_torch.models import dlrm as tdlrm
+from repro_torch.models import lm as tlm
 from repro_torch.train import optimizer as topt
 from repro_torch.train import steps as tsteps
+from repro_torch.train import tree as ttree
 from repro_torch.train.tree import leaves
 
 pytestmark = pytest.mark.cuda
@@ -459,3 +464,93 @@ def test_dlrm_train_step_on_card_matches_cpu(cuda):
     metrics = step(gpu, state, gb)
     assert all(v.device.type == "cuda" and bool(torch.isfinite(v)) for v in metrics.values())
     assert int(state["step"]) == 1
+
+
+# --------------------------------------------------------------------- #
+# flash attention (csrc/flash_attention.cu)
+# --------------------------------------------------------------------- #
+def _qkv(shape_q, shape_kv, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device, dtype)
+            for s in (shape_q, shape_kv, shape_kv)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 8, 1, 256, 128), (2, 2, 2, 512, 32),
+    (2, 4, 1, 64, 16), (1, 8, 1, 96, 256), (1, 2, 2, 48, 256)])
+def test_flash_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal, dtype, tol):
+    """The reference's tolerances (tests/test_kernels_flash.py): the float32
+    kernel sums in another order than the plain float32 product, the bf16
+    kernel rounds P to bf16 before P·V. Ragged last tiles (96, 48 rows)
+    are masked inside the kernel."""
+    q, k, v = _qkv((b, hq, s, d), (b, hkv, s, d), dtype, 0, cuda)
+    fops.KERNEL.launches = 0
+    got = fops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fops.KERNEL.launches == 1 and got.dtype == dtype
+    want = fref.mha(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_reads_strided_head_views(cuda, dtype, tol):
+    """k and v as the attention layer hands them over: [B, S, H, D] viewed
+    as [B, H, S, D], read through their strides with no copy; and a
+    non-causal call with Sq != Skv."""
+    b, s, hq, hkv, d = 2, 256, 4, 2, 64
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, hq + 2 * hkv, d)).astype(np.float32))
+    qkv = qkv.to(cuda, dtype)
+    q, k, v = (qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:])
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    assert not k.is_contiguous()
+    got = fops.flash_attention(q, k, v, causal=True)
+    want = fref.mha(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    got = fops.flash_attention(q[:, :, :128], k, v, causal=False)
+    want = fref.mha(q[:, :, :128], k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv((1, 2, 64, 48), (1, 2, 64, 48), torch.bfloat16, 2, cuda)
+    with pytest.raises(ValueError, match="bf16 kernel takes"):
+        fops.flash_attention(q, k, v)
+    q, k, v = _qkv((1, 2, 64, 64), (1, 2, 64, 64), torch.float16, 2, cuda)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fops.flash_attention(q, k, v)
+    q, k, v = _qkv((1, 2, 64, 64), (1, 2, 64, 64), torch.float32, 2, cuda)
+    odd_rows = torch.zeros((1, 2, 64, 65), device=cuda)[..., :64]  # rows 260 bytes apart
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fops.flash_attention(q, odd_rows, v)
+    with pytest.raises(ValueError, match="Sq=64 != Skv=128"):
+        fops.flash_attention(q, torch.cat([k, k], 2), torch.cat([v, v], 2), causal=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        qg = q.clone().requires_grad_(True)
+        fops.flash_attention(qg, k, v).sum().backward()
+
+
+def test_lm_smoke_prefill_on_card_matches_cpu(cuda):
+    """gemma-2b SMOKE (head_dim 16, MQA) prefill through the kernel on the
+    card against the chunked route on the CPU from the same weights, in
+    float32 compute (summation order only: 1e-4 of the logits' scale)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tgemma.SMOKE
+    cpu_model = tlm.LM(cfg, attn_impl="chunked", device="cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    card_model = tlm.LM(cfg, attn_impl="flash", device=cuda)
+    card_params = ttree.tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 64),
+                                                                dtype=np.int32))
+    want = tsteps.make_prefill_step(cpu_model)(params, {"tokens": tokens},
+                                               compute_dtype=torch.float32)
+    fops.KERNEL.launches = 0
+    got = tsteps.make_prefill_step(card_model)(card_params, {"tokens": tokens.to(cuda)},
+                                               compute_dtype=torch.float32)
+    assert fops.KERNEL.launches == cfg.n_layers
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale

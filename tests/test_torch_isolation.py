@@ -44,6 +44,20 @@ with tempfile.TemporaryDirectory() as root:
     back = checkpoint.restore(root, checkpoint.latest_step(root), tree, device="cpu")
 from repro_torch.train.tree import leaves
 assert all(torch.equal(a, b.detach()) for a, b in zip(leaves(back), leaves(tree)))
+# gemma-2b SMOKE: a prefill through the flash route and a served request
+from repro_torch import configs
+from repro_torch.models import lm
+from repro_torch.serve import engine
+
+model = lm.LM(configs.get_smoke("gemma-2b"), attn_impl="flash", device="cpu")
+params = model.init(torch.Generator().manual_seed(0))
+logits = steps.make_prefill_step(model)(params, {"tokens": torch.zeros((1, 32), dtype=torch.int32)})
+assert bool(torch.isfinite(logits).all())
+eng = engine.ServeEngine(model, params, batch_slots=2, cache_len=16)
+req = engine.Request(prompt=[1, 2, 3], max_new_tokens=4)
+eng.submit(req)
+eng.run_until_drained()
+assert len(req.generated) == 4
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
 """
@@ -56,8 +70,9 @@ def _env():
 
 
 def test_runs_without_jax_or_repro_in_sys_modules():
-    """Piper's two loops, then a DLRM train step and a checkpoint round trip,
-    in a process that never imports JAX or the JAX package."""
+    """Piper's two loops, a DLRM train step and a checkpoint round trip, an
+    LM prefill and a served request, in a process that never imports JAX or
+    the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _RUN_PORT_ONLY], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=300, check=True,
@@ -92,6 +107,28 @@ def test_default_device_raises_without_a_card(monkeypatch):
         P.PipelineConfig()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         P.PipelineConfig(device="cuda", input_format="binary")
+
+
+def test_lm_entry_points_default_to_the_card(monkeypatch):
+    """LM, ServeEngine (on an LM built with the defaults),
+    lm_params_from_numpy and the serve launcher run on the card unless told
+    otherwise, and raise without one."""
+    from repro_torch import configs, interop
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+
+    cfg = configs.get_smoke("gemma-2b")
+    tree = interop.lm_params_to_numpy(lm.LM(cfg, device="cpu").init(torch.Generator()))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.LM(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.ServeEngine(lm.LM(cfg), None, batch_slots=1, cache_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.lm_params_from_numpy(tree, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "gemma-2b", "--requests", "1"])
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():
