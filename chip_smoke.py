@@ -7,7 +7,9 @@
 Phases, each of which passes or ends the run with a non-zero exit:
   1. device — the card's name, count, torch and CUDA versions, then the
      build of every kernel source in src/repro_torch/kernels/csrc (one
-     nvcc per source, all at once), timed.
+     nvcc per source, all at once), timed, with the registers and spills
+     ptxas reported for the bf16 wgmma flash-attention kernel at head_dim
+     256 (gemma-2b's), which must not spill.
   2. kernels — each kernel wrapper on tensors on the card, at the main
      path's shapes, against its plain PyTorch version on the same inputs:
      integers bit for bit, dense f32 at rtol 1e-6. Times each kernel, its
@@ -44,7 +46,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
      weights from a seeded generator on the card, f32 at rest, bf16
      compute, TF32 off). The flash-attention kernel against its plain
      version at the layer's shapes (bf16 at 2e-2, f32 at 2e-5, an MHA head
-     map, a non-causal call), timed beside scaled_dot_product_attention.
+     map, a non-causal call), timed beside scaled_dot_product_attention
+     alike (CUDA events, kernel, SDPA, SDPA, kernel), with its route,
+     TFLOP/s, share of the bound, and the SDPA backend the default call
+     ran (each backend is also timed, forced in turn).
      A prefill of 4 x 4096 tokens (PiperTokenBatches over the sparse ids of
      the 5K utf8 run) must launch the kernel exactly once per layer and
      agree with the same prefill through attn_impl="chunked"; a prefill of
@@ -69,6 +74,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -146,8 +152,33 @@ FLASH_SEGMENT_ROWS = 256
 FLASH_REL_L2 = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
 
 
+# The D 256 instantiation of the bf16 wgmma kernel (gemma-2b's), by its
+# mangled name in ptxas's log; it must build without spills.
+FLASH_WGMMA_D256 = "flash_wgmma_kernelILi256E"
+
+
 class SmokeFailure(Exception):
     pass
+
+
+def ptxas_usage(log: str, entry: str) -> dict:
+    """Registers and spill bytes that ``nvcc -Xptxas -v`` reported for the
+    first kernel whose mangled name holds ``entry``; {} if none does."""
+    found, usage = False, {}
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            if found:
+                break
+            found = entry in line
+        elif found and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                usage.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif found and "Used" in line:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage["registers"] = int(m.group(1))
+    return usage
 
 
 def counters() -> dict:
@@ -273,17 +304,7 @@ class Smoke:
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        call_ms = start.elapsed_time(end) / reps
+        call_ms = self.event_ms(fn, reps, warmup)
         kernels = counters()
         device_ms, previous, passes = None, None, []
         for _ in range(4):
@@ -307,6 +328,25 @@ class Smoke:
         if device_ms is None:  # what the rejected traces held, for the record
             return {"device_ms": None, "call_ms": call_ms, "rejected_traces": passes}
         return {"device_ms": device_ms, "call_ms": call_ms}
+
+    def event_ms(self, fn, reps: int = 20, warmup: int = 3) -> float | None:
+        """CUDA-event time per call of ``fn``, ``reps`` calls back to back
+        after ``warmup`` more; None in a rehearsal (one call)."""
+        if self.rehearse:
+            fn()
+            return None
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
 
     def times(self, kernel, plain, library=None, plain_reps: int = 20) -> dict:
         """The kernel's, its plain version's and the library call's times:
@@ -388,14 +428,17 @@ class Smoke:
         t0 = time.perf_counter()
         paths = _build.build()
         seconds = time.perf_counter() - t0
-        ptxas = {
-            src: [ln.strip() for ln in Path(f"{path}.log").read_text().splitlines()
-                  if "registers" in ln or "Compiling entry" in ln]
-            for src, path in paths.items()
-        }
+        logs = {src: Path(f"{path}.log").read_text() for src, path in paths.items()}
+        ptxas = {src: [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "Compiling entry" in ln]
+                 for src, log in logs.items()}
+        flash = ptxas_usage(logs["flash_attention"], FLASH_WGMMA_D256)
         emit({"phase": "build", "seconds": seconds,
               "libraries": {k: str(v.relative_to(ROOT)) for k, v in paths.items()},
-              "ptxas": ptxas})
+              "ptxas": ptxas, "flash_wgmma_d256": flash})
+        expect(flash.get("spill_stores") == 0 and flash.get("spill_loads") == 0,
+               f"flash_attention.cu: the D 256 wgmma kernel spills ({flash})")
+        info["flash_wgmma_d256"] = flash
         return info
 
     # -- phase 2 -------------------------------------------------------- #
@@ -1377,7 +1420,16 @@ class Smoke:
         shape (random bf16 q, k, v). ``errs`` is (max abs, segment relative
         L2) from the checks at this shape; None at 32K, where the plain
         version runs one query head at a time (all 8 heads' float32 logits
-        take 34 GB), and the errors are measured here."""
+        take 34 GB), and the errors are measured here.
+
+        The kernel, SDPA and the plain version are timed alike, by CUDA
+        events around calls back to back, the kernel and SDPA in the order
+        kernel, SDPA, SDPA, kernel (the two runs of each averaged):
+        profiler traces of such long loops lose launches.
+        SDPA runs as the default dispatch (``library_ms``) and with each
+        backend forced in turn (``sdpa_backends``); ``library_backend`` is
+        the forced backend whose output the default call's equals bit for
+        bit."""
         torch, dev = self.torch, self.dev
         from repro_torch.kernels.flash_attention import ops as faops, ref as faref
 
@@ -1408,22 +1460,71 @@ class Smoke:
                        f"{h}: relative L2 {rel} over {FLASH_SEGMENT_ROWS} rows > {rel_tol}")
             del got, want
         sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def kernel():
+            return faops.flash_attention(q, k, v)
+
+        def library():
+            return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+
+        reps = 20 if seq <= 4096 else 5
+        runs = {"ms": [], "library_ms": []}
+        for key, fn in (("ms", kernel), ("library_ms", library), ("library_ms", library),
+                        ("ms", kernel)):
+            runs[key].append(self.event_ms(fn, reps))
+        ms, lib_ms = (None if None in r else sum(r) / len(r) for r in runs.values())
+        plain_ms = self.event_ms(plain, reps=2 if per_head else 5)
         ops = 4 * batch * hq * seq * seq * d // 2  # causal: half the products
         io = (2 * batch * hq + 2 * batch * hkv) * seq * d * 2
         b_ms, b_by = bound(io, ops, TENSOR_CORE_BF16_OPS_PER_S)
+        backends, library_backend = self._sdpa_backends(library, reps, seq)
         rec = {
-            "max_abs_err": err, "segment_rel_l2": rel,
-            **self.times(lambda: faops.flash_attention(q, k, v), plain,
-                         lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-                         plain_reps=2 if per_head else 5),
+            "max_abs_err": err, "segment_rel_l2": rel, "kernel_route": faops.route(q.dtype, d),
+            "ms": ms, "library_ms": lib_ms, "plain_ms": plain_ms, "call_ms": ms,
+            "ms_runs": runs["ms"], "library_ms_runs": runs["library_ms"],
+            "ms_from": {"ms": "cuda_events", "plain_ms": "cuda_events",
+                        "library_ms": "cuda_events"},
             "bound_ms": b_ms, "bound_by": b_by,
             "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+            "library_backend": library_backend, "sdpa_backends": backends,
             "plain": "ref.mha, one query head at a time" if per_head else "ref.mha",
             "shape": f"q [{batch}, {hq}, {seq}, {d}], k/v [{batch}, {hkv}, {seq}, {d}] bf16",
         }
-        if rec["ms"]:
-            rec["tflops"] = ops / rec["ms"] / 1e9
+        if ms:
+            rec.update(tflops=ops / ms / 1e9, bound_share=b_ms / ms, vs_library=ms / lib_ms,
+                       library_tflops=ops / lib_ms / 1e9)
         return rec
+
+    def _sdpa_backends(self, library, reps: int, seq: int) -> tuple[dict, str | None]:
+        """``library`` under torch.nn.attention.sdpa_kernel with each backend
+        in turn: backend → its CUDA-event ms and the largest difference of
+        its output from the default call's, or why it did not run. Returns
+        that and the backend(s) whose output equals the default call's bit
+        for bit, the one the default ran (None if none does; profiler traces
+        of these calls came back empty). MATH materialises the [S, S]
+        scores, so it runs only up to 8192 keys."""
+        torch = self.torch
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        default = library()
+        backends, ran = {}, []
+        for name in ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "MATH"):
+            if name == "MATH" and seq > 8192:
+                backends[name] = {"not_run": f"{seq} keys: the [S, S] scores take too much memory"}
+                continue
+            try:
+                with sdpa_kernel([getattr(SDPBackend, name)]):
+                    out = library()
+                    backends[name] = {"ms": self.event_ms(library, reps)}
+            except RuntimeError as e:
+                backends[name] = {"refused": str(e).strip().splitlines()[0][:160]}
+                continue
+            backends[name]["max_abs_diff_to_default"] = float(
+                (out.float() - default.float()).abs().max())
+            if torch.equal(out, default):
+                ran.append(name)
+            del out
+        return backends, ("/".join(ran) if ran else None)
 
     def _serve(self, data, result: dict) -> tuple[dict, dict]:
         torch, np, dev = self.torch, self.np, self.dev
@@ -1646,6 +1747,8 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": n,
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "call_ms", "ms_from")},
+            **{k: rec[k] for k in ("kernel_route", "tflops", "bound_share", "library_backend")
+               if k in rec},
             "on_main_path": name in PATH_KERNELS + TRAIN_KERNELS + SERVE_KERNELS,
             "shape": rec["shape"],
         })

@@ -2,8 +2,10 @@
 
 ``flash_attention(q, k, v, causal=...)`` keeps the reference's layout
 (q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]``), its checks and their
-messages. On CUDA tensors it launches the kernel, once per call; on CPU
-tensors it takes the plain version (``ref.mha``). Both routes raise
+messages. On CUDA tensors it launches the kernel, once per call, on the
+route that :func:`route` names for the dtype and head_dim (no route falls
+back to another: a refused launch or tensor map raises); on CPU tensors it
+takes the plain version (``ref.mha``). Both routes raise
 ``ValueError`` for a causal call with ``Sq != Skv``: the kernel aligns
 causal queries top-left and ``ref.mha`` bottom-right, and the two agree
 only when the lengths are equal. The kernel is forward only, like the
@@ -18,8 +20,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
 BLOCK = 128  # the reference's default block: Sq and Skv must divide by min(BLOCK, S)
-BF16_HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)  # bf16 on TMA + wgmma; the rest of bf16 on mma.sync
+BF16_HEAD_DIMS = (16, 32) + WGMMA_HEAD_DIMS
 MAX_F32_HEAD_DIM = 256
+# route → (its code in the C entry point, query rows per block)
+ROUTES = {"f32": (0, 32), "mma_sync": (1, 64), "wgmma": (2, 128)}
 
 _P, _I, _I64 = _build.PTR, _build.INT, _build.INT64
 KERNEL = _build.Kernel("flash_attention", "flash_attention", [_P] * 4 + [_I64] * 9 + [_I] * 8)
@@ -59,19 +64,27 @@ def _check_strides(t: torch.Tensor, name: str, dtype: torch.dtype, device) -> No
             f"contiguous last dimension and 16-byte aligned rows, got strides {t.stride()}")
 
 
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel route of a CUDA call, by shape alone: ``"wgmma"`` (bf16 at
+    head_dim 64, 128, 256: TMA-fed stages, wgmma, a producer warpgroup),
+    ``"mma_sync"`` (bf16 at 16, 32) or ``"f32"`` (float32 on the CUDA
+    cores). Raises for what no route takes."""
+    if dtype == torch.bfloat16:
+        if head_dim not in BF16_HEAD_DIMS:
+            raise ValueError(f"head_dim {head_dim}: the bf16 kernel takes {BF16_HEAD_DIMS}")
+        return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+    if dtype == torch.float32:
+        if head_dim % 4 or head_dim > MAX_F32_HEAD_DIM:
+            raise ValueError(f"head_dim {head_dim}: the float32 kernel takes multiples of 4 up "
+                             f"to {MAX_F32_HEAD_DIM}")
+        return "f32"
+    raise TypeError(f"q: expected bfloat16 or float32, got {dtype}")
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if q.dtype == torch.bfloat16:
-        if d not in BF16_HEAD_DIMS:
-            raise ValueError(f"head_dim {d}: the bf16 kernel takes {BF16_HEAD_DIMS}")
-    elif q.dtype == torch.float32:
-        if d % 4 or d > MAX_F32_HEAD_DIM:
-            raise ValueError(
-                f"head_dim {d}: the float32 kernel takes multiples of 4 up to {MAX_F32_HEAD_DIM}")
-    else:
-        raise TypeError(f"q: expected bfloat16 or float32, got {q.dtype}")
-    rows_per_block = 64 if q.dtype == torch.bfloat16 else 32  # the kernels' query tiles
+    code, rows_per_block = ROUTES[route(q.dtype, d)]
     if b * hq >= 2**31 or -(-sq // rows_per_block) >= 2**16 or skv >= 2**31:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}: too large for one launch")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -84,7 +97,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> 
     p = _build.ptr
     KERNEL.launch(
         q.device, p(q), p(k), p(v), p(out), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        b, hq, hkv, sq, skv, d, int(causal), int(q.dtype == torch.bfloat16))
+        b, hq, hkv, sq, skv, d, int(causal), code)
     return out
 
 

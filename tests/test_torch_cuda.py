@@ -480,12 +480,17 @@ def _qkv(shape_q, shape_kv, dtype, seed, device):
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("b,hq,hkv,s,d", [
     (1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 8, 1, 256, 128), (2, 2, 2, 512, 32),
-    (2, 4, 1, 64, 16), (1, 8, 1, 96, 256), (1, 2, 2, 48, 256)])
+    (2, 4, 1, 64, 16), (1, 8, 1, 96, 256), (1, 2, 2, 48, 256),
+    (1, 8, 1, 1024, 256), (2, 8, 1, 384, 256), (1, 8, 1, 64, 256), (1, 4, 4, 512, 128)])
 def test_flash_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal, dtype, tol):
     """The reference's tolerances (tests/test_kernels_flash.py): the float32
     kernel sums in another order than the plain float32 product, the bf16
-    kernel rounds P to bf16 before P·V. Ragged last tiles (96, 48 rows)
-    are masked inside the kernel."""
+    kernels round P to bf16 before P·V. Ragged last tiles (96, 48 rows)
+    are masked inside the kernel. On the bf16 wgmma route (D 64, 128, 256):
+    1024 rows wrap the ring of K/V stages many times; 384 rows are an odd
+    number of 128-row blocks, with diagonal tiles in both consumer
+    warpgroups; 64 rows are one partial block, filled by TMA's
+    out-of-bounds zeros."""
     q, k, v = _qkv((b, hq, s, d), (b, hkv, s, d), dtype, 0, cuda)
     fops.KERNEL.launches = 0
     got = fops.flash_attention(q, k, v, causal=causal)
@@ -497,11 +502,13 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal, dtype, tol):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
-def test_flash_kernel_reads_strided_head_views(cuda, dtype, tol):
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_kernel_reads_strided_head_views(cuda, d, dtype, tol):
     """k and v as the attention layer hands them over: [B, S, H, D] viewed
-    as [B, H, S, D], read through their strides with no copy; and a
-    non-causal call with Sq != Skv."""
-    b, s, hq, hkv, d = 2, 256, 4, 2, 64
+    as [B, H, S, D], read through their strides with no copy (on the wgmma
+    route, through the tensor maps' strides); and a non-causal call with
+    Sq != Skv."""
+    b, s, hq, hkv = 2, 256, 4, 2
     rng = np.random.default_rng(1)
     qkv = torch.from_numpy(rng.standard_normal((b, s, hq + 2 * hkv, d)).astype(np.float32))
     qkv = qkv.to(cuda, dtype)
@@ -514,6 +521,24 @@ def test_flash_kernel_reads_strided_head_views(cuda, dtype, tol):
     got = fops.flash_attention(q[:, :, :128], k, v, causal=False)
     want = fref.mha(q[:, :, :128], k, v, causal=False)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 4, "f32"), (torch.float32, 64, "f32"),
+    (torch.float32, 256, "f32")])
+def test_flash_route_pins_each_head_dim(cuda, dtype, d, route):
+    """ops.route names the kernel each (dtype, head_dim) takes on the card,
+    and the call launches it exactly once."""
+    assert fops.route(dtype, d) == route
+    q, k, v = _qkv((1, 2, 128, d), (1, 1, 128, d), dtype, 3, cuda)
+    fops.KERNEL.launches = 0
+    got = fops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fops.KERNEL.launches == 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), fref.mha(q, k, v).float(), atol=tol, rtol=tol)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
@@ -532,6 +557,16 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(RuntimeError, match="no gradient"):
         qg = q.clone().requires_grad_(True)
         fops.flash_attention(qg, k, v).sum().backward()
+    # no fallback: a tensor map TMA refuses (a row stride of 2^40 bytes)
+    # raises, and nothing is launched or counted
+    q, k, v = _qkv((1, 2, 128, 256), (1, 1, 128, 256), torch.bfloat16, 2, cuda)
+    out = torch.empty_like(q)
+    p, launches = fops._build.ptr, fops.KERNEL.launches
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+        fops.KERNEL.launch(cuda, p(q), p(k), p(v), p(out), *q.stride()[:2], 2**39,
+                           *k.stride()[:3], *v.stride()[:3], 1, 2, 1, 128, 128, 256, 1,
+                           fops.ROUTES["wgmma"][0])
+    assert fops.KERNEL.launches == launches
 
 
 def test_lm_smoke_prefill_on_card_matches_cpu(cuda):

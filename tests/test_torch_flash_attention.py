@@ -98,6 +98,24 @@ def test_wrapper_raises_the_reference_errors(device):
         fops.flash_attention(t(1, 2, 128, 32), t(1, 2, 256, 32), t(1, 2, 256, 32), causal=True)
 
 
+def test_route_by_dtype_and_head_dim():
+    """The CUDA kernel's route is a function of (dtype, head_dim) alone:
+    bf16 at gemma-2b's 256 and at 64 and 128 takes TMA + wgmma, bf16 at
+    16 and 32 mma.sync, float32 the CUDA cores; the rest raises with the
+    wrapper's messages."""
+    want = {16: "mma_sync", 32: "mma_sync", 64: "wgmma", 128: "wgmma", 256: "wgmma"}
+    assert {d: fops.route(torch.bfloat16, d) for d in fops.BF16_HEAD_DIMS} == want
+    assert {fops.route(torch.float32, d) for d in range(4, 257, 4)} == {"f32"}
+    assert {r: rows for r, (_, rows) in fops.ROUTES.items()} == {
+        "f32": 32, "mma_sync": 64, "wgmma": 128}
+    with pytest.raises(ValueError, match="bf16 kernel takes"):
+        fops.route(torch.bfloat16, 48)
+    with pytest.raises(ValueError, match="multiples of 4 up to 256"):
+        fops.route(torch.float32, 258)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fops.route(torch.float16, 64)
+
+
 def test_unequal_lengths_run_when_not_causal():
     (jq, jk, jv), (q, k, v) = _inputs(
         [(1, 4, 128, 32), (1, 2, 256, 32), (1, 2, 256, 32)], 5, jnp.float32, torch.float32)
