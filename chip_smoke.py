@@ -15,7 +15,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
      integers bit for bit, dense f32 at rtol 1e-6. Times each kernel, its
      plain version and, where one PyTorch call does comparable work, that
      call (CUDA events, warmed up), beside the least time the card could
-     take (bytes over 3.35 TB/s, or operations over 67 T/s).
+     take (bytes over 3.35 TB/s, or operations over 67 T/s). fused_genvocab
+     is also timed on fresh states (every slot NEVER) and on the binary
+     feed's first chunk (every row live, its own bound), beside an empty
+     kernel's device time (the launch floor); the embedding gradient's
+     record shows its zeroing, sort and sum apart (one torch.profiler pass).
   3. golden — PiperPipeline on the card over tests/goldens/fused_small.npz,
      and with use_fused_decode=True over decode_fused_small.npz, reproduces
      the stored labels, ids and dense values and their digest.
@@ -371,6 +375,115 @@ class Smoke:
                 "ms_from": {"ms": source(k), "plain_ms": source(p), "library_ms": source(lib)},
                 **({"rejected_traces": rejected} if rejected else {})}
 
+    def each_ms(self, calls) -> float | None:
+        """Device ms per call of one torch.profiler pass over ``calls``, each
+        a different call (so each may start from its own prepared state),
+        summed over every kernel and memset the pass ran; None in a
+        rehearsal, or when the trace holds fewer kernels than the wrappers
+        counted launches."""
+        if self.rehearse:
+            for c in calls:
+                c()
+            return None
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        kernels = counters()
+        reset_counters(kernels)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for c in calls:
+                c()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in events) < sum(k.launches for k in kernels.values()):
+            return None
+        return sum(e.self_device_time_total for e in events) / 1e3 / len(calls)
+
+    def stages(self, fn, reps: int = 5) -> dict | None:
+        """Device ms per call of each kernel and memset that ``fn`` runs, by
+        name, from one short torch.profiler pass over ``reps`` calls (short,
+        so the trace keeps every launch); None in a rehearsal."""
+        if self.rehearse:
+            fn()
+            return None
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key[:60]: {"count": e.count, "ms": e.self_device_time_total / 1e3 / reps}
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total}
+
+    def launch_floor(self) -> float | None:
+        """Device ms of one empty kernel (csrc/fused_vocab.cu), launched
+        back to back on the current stream: the floor under the µs
+        kernels. None in a rehearsal."""
+        if self.rehearse:
+            return None
+        import ctypes
+
+        from repro_torch.kernels import _build
+
+        fn = _build.library("fused_vocab").empty_kernel
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        torch = self.torch
+
+        def launch():
+            expect(fn(torch.cuda.current_stream().cuda_stream) == 0, "empty_kernel: refused")
+
+        return self.each_ms([launch] * 50)
+
+    def fresh_ms(self, vocab_lib, n_cols, vr, track, rows_seen, sparse, valid, update,
+                 reps: int = 10) -> float | None:
+        """Device ms of ``update`` on a fresh state (every slot NEVER, counts
+        0, at ``rows_seen``), a new one for each of ``reps`` calls, all made
+        before the profiled pass."""
+        states = [vocab_lib.VocabState.init(n_cols, vr, track_counts=track, device=self.dev)
+                  for _ in range(1 if self.rehearse else reps)]
+        for st in states:
+            st.rows_seen.copy_(rows_seen)
+        return self.each_ms([lambda st=st: update(st, sparse, valid) for st in states])
+
+    def binary_genvocab(self, data, vocab_lib, fvops, fvref, base, vr) -> dict:
+        """fused_genvocab on the binary feed's first chunk (every row live),
+        bit for bit against its plain version on the filled and on a fresh
+        state, and its times (filled and fresh) with its own bound."""
+        torch, dev = self.torch, self.dev
+        sparse = torch.from_numpy(data["binary"]["sparse"][:MAX_ROWS]).to(dev)
+        rows, n_cols = sparse.shape
+        valid = torch.ones(rows, dtype=torch.bool, device=dev)
+        fresh = vocab_lib.VocabState.init(n_cols, vr, device=dev)
+        fresh.rows_seen.copy_(base.rows_seen)
+        for what, start in (("filled", base), ("fresh", fresh)):
+            def state():
+                return vocab_lib.VocabState(start.first_pos.clone(), start.rows_seen.clone())
+
+            got = fvops.fused_update(state(), sparse, valid)
+            want = state()
+            want_seen = fvref.fused_genvocab(want.first_pos, None, sparse, valid, want.rows_seen)
+            self.sync()
+            where = f"fused_genvocab V={vr}, binary chunk, {what} state"
+            expect(torch.equal(got.first_pos, want.first_pos), f"{where}: first_pos differs")
+            expect(torch.equal(got.rows_seen, want_seen), f"{where}: rows_seen differs")
+        from repro_torch.core.uint32 import as_u32
+
+        slots = torch.arange(n_cols, device=dev)[None, :] * vr + as_u32(sparse) % vr
+        touched = int(torch.unique(slots).numel())
+        b_ms, b_by = bound(rows * n_cols * 4 + rows + 8 + touched * 8, 4 * rows * n_cols)
+        st = vocab_lib.VocabState(base.first_pos.clone(), base.rows_seen.clone())
+        return {"ms": self.time_ms(lambda: fvops.fused_update(st, sparse, valid))["device_ms"],
+                "fresh_ms": self.fresh_ms(vocab_lib, n_cols, vr, False, base.rows_seen, sparse,
+                                          valid, fvops.fused_update),
+                "bound_ms": b_ms, "bound_by": b_by, "shape": f"[{rows}, {n_cols}], all live"}
+
     def wall_seconds(self, fn, n: int = 5) -> list[float]:
         """Host-clock seconds of each of ``n`` runs of ``fn`` (one in a
         rehearsal), each ending in a synchronize."""
@@ -497,6 +610,11 @@ class Smoke:
             "shape": f"{n} B chunk, max_rows {MAX_ROWS}",
         })
 
+        # the launch floor: an empty kernel's device time on the same stream
+        floor_ms = self.launch_floor()
+        emit({"phase": "kernels", "launch_floor_ms": floor_ms,
+              "what": "device time of an empty kernel (fused_vocab.cu::empty_kernel)"})
+
         # loops ① and ②: the decoded chunk, into states with some history
         _, dense, sparse, valid = dops.decode(buf, hex_table, **kw)
         rows, n_cols = sparse.shape
@@ -543,7 +661,7 @@ class Smoke:
                     4 * live_rows * n_cols)
                 idx_t = modded.t().contiguous()
                 src = pos[None, :].expand_as(idx_t).contiguous()
-                record(f"{name}@{tag}", {
+                rec = {
                     "max_abs_err": 0,
                     **self.times(
                         lambda: fvops.fused_update(st, sparse, valid),
@@ -553,7 +671,16 @@ class Smoke:
                     "bound_ms": b_ms, "bound_by": b_by,
                     "library_call": "Tensor.scatter_reduce_(amin) on pre-modded indices",
                     "shape": f"[{rows}, {n_cols}] into [{n_cols}, {vr}]",
-                })
+                    # ms above is on a state this chunk has already filled;
+                    # a fresh state (every slot NEVER) makes every first
+                    # sighting an atomic, as a chunk sees early in a run
+                    "fresh_ms": self.fresh_ms(vocab_lib, n_cols, vr, track, base.rows_seen,
+                                              sparse, valid, fvops.fused_update),
+                    "launch_floor_ms": floor_ms,
+                }
+                if not track:
+                    rec["binary"] = self.binary_genvocab(data, vocab_lib, fvops, fvref, base, vr)
+                record(f"{name}@{tag}", rec)
 
             # loop ② through a vocabulary finalized from that state
             vocab = vocab_lib.finalize(base)
@@ -847,6 +974,9 @@ class Smoke:
                     0, rows_flat, grad2d),
                 plain_reps=5),
             "bound_ms": b_ms, "bound_by": b_by,
+            # zeroing, sort and sum apart: device ms per call of each kernel
+            # and memset the call runs
+            "stages": self.stages(lambda: ebops.embedding_gather_backward(grad_out, ids, vr)),
             "library_call": "torch.zeros(C·V, D).index_add_ on ids + c·V (atomics: "
                             "not deterministic)",
             "tolerance": "(n-1)·2^-24·Σ|terms| per element against float64, n = "
@@ -1747,7 +1877,8 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": n,
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "call_ms", "ms_from")},
-            **{k: rec[k] for k in ("kernel_route", "tflops", "bound_share", "library_backend")
+            **{k: rec[k] for k in ("kernel_route", "tflops", "bound_share", "library_backend",
+                                   "fresh_ms", "binary", "launch_floor_ms", "stages")
                if k in rec},
             "on_main_path": name in PATH_KERNELS + TRAIN_KERNELS + SERVE_KERNELS,
             "shape": rec["shape"],

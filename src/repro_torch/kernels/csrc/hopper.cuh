@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks written as PTX: mbarriers, TMA tile
 // loads, setmaxnreg, and warpgroup matrix products (wgmma) with their
-// shared-memory descriptors. Used by flash_attention.cu.
+// shared-memory descriptors. Used by flash_attention.cu, and for its
+// mbarriers by embedding_bag.cu.
 //
 // The wgmma wrappers list every accumulator register as its own asm
 // operand: inline PTX takes no arrays. Each wrapper is one instruction of

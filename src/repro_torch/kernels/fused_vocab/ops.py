@@ -6,6 +6,11 @@ bit-identical to the reference's scatter-min at any range, and the
 reference's memory tiers (vmem / hbm_slab / xla_fallback) have no
 counterpart here. The kernel needs no row padding either: it masks the
 ragged edge itself.
+
+The kernel's blocks count the valid rows into a 64-bit tally in device
+memory, which the last block puts back to 0. The wrapper keeps one tally
+per (device, stream), zeroed when it is made (:func:`tally`): launches on
+one stream run one after another, and two streams never share one.
 """
 
 from __future__ import annotations
@@ -18,11 +23,26 @@ from repro_torch.kernels.fused_vocab import ref
 
 _P, _I = _build.PTR, _build.INT
 KERNEL = _build.Kernel(
-    "fused_vocab", "fused_genvocab", [_P, _P, _P, _P, _P, _I, _I, _I]
+    "fused_vocab", "fused_genvocab", [_P, _P, _P, _P, _P, _P, _I, _I, _I]
 )
 KERNEL_COUNTS = _build.Kernel(
-    "fused_vocab", "fused_genvocab_counts", [_P, _P, _P, _P, _P, _P, _I, _I, _I]
+    "fused_vocab", "fused_genvocab_counts", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I]
 )
+_tallies: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def tally(device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's int64 [1] row tally for launches on ``stream`` (a
+    stream handle) of ``device``: made zeroed at first use, then kept, and
+    left at 0 by every launch."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device, stream)
+    t = _tallies.get(key)
+    if t is None:
+        t = _tallies[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return t
 
 
 def fused_update(
@@ -64,15 +84,16 @@ def fused_update(
         raise ValueError(f"{rows} x {n_cols} elements; the kernel takes fewer than 2**31")
     rows_seen = torch.empty((), dtype=torch.int32, device=dev)
     p = _build.ptr
+    rows_tally = p(tally(dev, torch.cuda.current_stream(dev).cuda_stream))
     if track_counts:
         _build.check(state.counts, "counts", torch.int32, state.first_pos.shape, dev)
         KERNEL_COUNTS.launch(
             dev, p(state.first_pos), p(state.counts), p(sparse), p(valid),
-            p(state.rows_seen), p(rows_seen), rows, n_cols, vocab_range,
+            p(state.rows_seen), p(rows_seen), rows_tally, rows, n_cols, vocab_range,
         )
     else:
         KERNEL.launch(
             dev, p(state.first_pos), p(sparse), p(valid), p(state.rows_seen),
-            p(rows_seen), rows, n_cols, vocab_range,
+            p(rows_seen), rows_tally, rows, n_cols, vocab_range,
         )
     return vocab_lib.VocabState(state.first_pos, rows_seen, state.counts)

@@ -104,6 +104,80 @@ def test_genvocab_kernel_matches_plain(cuda, vocab_range, track_counts, rows_see
         assert torch.equal(got.counts, want.counts)
 
 
+def _zipf_chunk(rows, seed, hot_share=0.0):
+    """Raw hashes [rows, 26] of the synth feed (Zipf(1.3) over 2^14 hashes a
+    column); with ``hot_share``, that share of the cells holds one hash."""
+    sparse = synth.generate_binary(synth.SynthConfig(rows=rows, seed=seed))["sparse"]
+    if hot_share:
+        rng = np.random.default_rng(seed)
+        sparse[rng.random(sparse.shape) < hot_share] = 12345
+    return sparse
+
+
+@pytest.mark.parametrize("vocab_range", [5000, 1_000_000])
+@pytest.mark.parametrize("state", ["fresh", "mixed"])
+@pytest.mark.parametrize("rows_seen", [16384, tvocab.NEVER - 3], ids=["offset", "ceiling"])
+@pytest.mark.parametrize("chunk", ["hot_quarter", "utf8_live_head", "all_invalid",
+                                   "ragged_1001", "ragged_37_sparse_valid"])
+def test_fused_genvocab_tiles_match_scatter_min(cuda, vocab_range, state, rows_seen, chunk):
+    """The tiled kernel against the plain scatter_reduce_(amin), bit for bit:
+    a [16384, 26] chunk where one hash fills a quarter of the cells (the
+    warp merge), the utf8 shape (3745 live rows, padding after), an
+    all-invalid chunk, and row counts that are no multiple of the tile;
+    into a fresh state or one pre-filled with positions below and above the
+    chunk's (so both the skipped and the issued atomics run)."""
+    rng = np.random.default_rng(vocab_range + rows_seen % 1000)
+    rows = {"ragged_1001": 1001, "ragged_37_sparse_valid": 37}.get(chunk, 16384)
+    sparse = _zipf_chunk(rows, 3, hot_share=0.25 if chunk == "hot_quarter" else 0.0)
+    valid = {"utf8_live_head": np.arange(rows) < 3745, "all_invalid": np.zeros(rows, bool),
+             "ragged_37_sparse_valid": rng.random(rows) < 0.6}.get(chunk, np.ones(rows, bool))
+    sparse[~valid] = 0
+    first = np.full((26, vocab_range), tvocab.NEVER, np.int32)
+    if state == "mixed":
+        first = rng.integers(0, 3 * 16384, (26, vocab_range)).astype(np.int32)
+        first[rng.random(first.shape) < 0.5] = tvocab.NEVER
+    sparse, valid = torch.from_numpy(sparse).to(cuda), torch.from_numpy(valid).to(cuda)
+
+    def fresh():
+        return tvocab.VocabState(torch.from_numpy(first).to(cuda),
+                                 torch.tensor(rows_seen, dtype=torch.int32, device=cuda))
+
+    fvops.KERNEL.launches = 0
+    got = fvops.fused_update(fresh(), sparse, valid)
+    assert fvops.KERNEL.launches == 1
+    want = fresh()
+    seen = fvref.fused_genvocab(want.first_pos, None, sparse, valid, want.rows_seen)
+    assert torch.equal(got.first_pos, want.first_pos)
+    assert torch.equal(got.rows_seen, seen)
+    # the tally is back at 0, so a second chunk counts from nothing
+    assert int(fvops.tally(cuda, torch.cuda.current_stream(cuda).cuda_stream)) == 0
+
+
+def test_fused_genvocab_streams_keep_their_own_tally(cuda):
+    """Chunks on two streams at once: each stream's launches count into its
+    own tally, and both states end as the plain version's."""
+    sparse = torch.from_numpy(_zipf_chunk(16384, 4)).to(cuda)
+    valid = torch.ones(16384, dtype=torch.bool, device=cuda)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    states, outs = [], []
+    for i, st in enumerate(streams):
+        st.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(st):
+            s = tvocab.VocabState.init(26, 5000, device=cuda)
+            s.rows_seen.fill_(i * 100)
+            states.append(s)
+            outs.append(fvops.fused_update(s, sparse, valid))
+    torch.cuda.synchronize()
+    assert fvops.tally(cuda, streams[0].cuda_stream) is not fvops.tally(
+        cuda, streams[1].cuda_stream)
+    for i, out in enumerate(outs):
+        want = tvocab.VocabState.init(26, 5000, device=cuda)
+        want.rows_seen.fill_(i * 100)
+        seen = fvref.fused_genvocab(want.first_pos, None, sparse, valid, want.rows_seen)
+        assert torch.equal(out.first_pos, want.first_pos)
+        assert torch.equal(out.rows_seen, seen)
+
+
 @pytest.mark.parametrize("vocab_range", [257, 5000, 1_000_000])
 def test_xform_kernels_match_plain(cuda, vocab_range):
     rng = np.random.default_rng(vocab_range)
@@ -379,14 +453,21 @@ def test_embedding_gather_kernel_unaligned_takes_scalar_path(cuda):
 
 @pytest.mark.parametrize("shape", [(26, 5000, 64, 4096), (26, 1_000_000, 64, 4096),
                                    (4, 50, 64, 5000), (3, 11, 5, 40), (2, 1, 8, 300),
-                                   (4, 97, 8, 1), (2, 7, 64, 33), (3, 9, 4, 0)], ids=str)
+                                   (4, 97, 8, 1), (2, 7, 64, 33), (3, 9, 4, 0),
+                                   (26, 5000, 64, 4095), (26, 5000, 64, 4097),
+                                   (26, 5000, 64, 16384), (26, 1_000_000, 64, 8192),
+                                   (2, 8192, 6, 700), (3, 4096, 64, 9000)], ids=str)
 @pytest.mark.parametrize("out_of_range", [False, True], ids=["in_range", "out_of_range"])
 def test_embedding_gather_backward_kernel_matches_float64(cuda, shape, out_of_range):
     """Against the plain gradient summed in float64, within the float32
     bound of ``_sum_bound``; ids out of range after the wrap add nothing;
-    two launches on the same inputs give the same bits. (4, 50, 64, 5000)
-    sorts in device memory (more than 4096 rows), (2, 1, 8, 300) sums every
-    row of a column into one table row."""
+    two launches on the same inputs give the same bits. (26, 5000, 64,
+    16384) and (3, 4096, 64, 9000) sort in device memory (padded columns
+    past 8192 rows), (2, 1, 8, 300) sums every row of a column into one
+    table row, 4095 and 4097 rows end a segment early, (2, 8192, 6, 700)
+    has a power-of-two table (the dropped key V needs one more bit) and
+    rows of 6 floats, (3, 11, 5, 40) rows of 5 (one float a lane), and
+    10^6 with 8192 rows no longer packs id and row into 32 bits."""
     n_cols, vocab, dim, batch = shape
     _, ids, grad_out = _embedding_inputs(cuda, *shape, seed=1, out_of_range=out_of_range,
                                          tables=False)
@@ -402,6 +483,37 @@ def test_embedding_gather_backward_kernel_matches_float64(cuda, shape, out_of_ra
     delta.sub_(want).abs_()
     del want
     assert bool((delta <= _sum_bound(grad_out, ids, vocab)).all())
+
+
+@pytest.mark.parametrize("batch", [32, 4096, 16384])
+def test_embedding_gather_backward_one_id_per_column(cuda, batch):
+    """Every row of each column holds one id, so its run spans every segment
+    of the column: one warp joins the partials of all of them, in segment
+    order, the same bits twice."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    grad_out = torch.randn((batch, 4, 64), generator=gen, device=cuda)
+    ids = torch.full((batch, 4), 17, dtype=torch.int32, device=cuda)
+    ids[:, 3] = -1  # wraps to V - 1
+    got = ebops.embedding_gather_backward(grad_out, ids, 5000)
+    assert torch.equal(got, ebops.embedding_gather_backward(grad_out, ids, 5000))
+    want = ebref.embedding_gather_backward(grad_out, ids, 5000, dtype=torch.float64)
+    assert bool(((got.double() - want).abs() <= _sum_bound(grad_out, ids, 5000)).all())
+    assert int((got != 0).any(-1).sum()) == 4
+
+
+@pytest.mark.parametrize("vocab", [5000, 1_000_000])
+def test_embedding_gather_backward_memset_route_matches(cuda, vocab):
+    """The route that zeroes the gradient by cudaMemsetAsync gives the same
+    bits as the one that zeroes it in the sort's launch."""
+    _, ids, grad_out = _embedding_inputs(cuda, 26, vocab, 64, 4096, seed=2, out_of_range=True,
+                                         tables=False)
+    got = ebops.embedding_gather_backward(grad_out, ids, vocab)
+    limit = ebops.ZERO_IN_KERNEL_MAX_BYTES
+    ebops.ZERO_IN_KERNEL_MAX_BYTES = 2**62 if got.nbytes > limit else 0
+    try:
+        assert torch.equal(got, ebops.embedding_gather_backward(grad_out, ids, vocab))
+    finally:
+        ebops.ZERO_IN_KERNEL_MAX_BYTES = limit
 
 
 def test_embedding_gather_autograd_launches_each_kernel_once(cuda):

@@ -175,3 +175,29 @@ def test_ids_get_no_gradient_and_empty_batch():
     assert out.shape == (0, 3, 4)
     out.sum().backward()
     assert t.grad.shape == tables.shape and not t.grad.any()
+
+
+@pytest.mark.parametrize("batch,padded,n_seg,in_shared", [
+    (0, 1024, 0, True), (1, 1024, 1, True), (33, 1024, 2, True), (4095, 4096, 128, True),
+    (4096, 4096, 128, True), (4097, 5120, 129, True), (8192, 8192, 256, True),
+    (8193, 9216, 257, False), (16384, 16384, 512, False),
+])
+def test_backward_scratch_follows_the_kernels_layout(batch, padded, n_seg, in_shared):
+    """The backward's scratch as csrc/embedding_bag.cu reads it: each column
+    padded to a multiple of the sort block's 1024 lanes; device-memory sort
+    buffers only past 8192 padded rows; one segment per 32 sorted rows."""
+    shapes = tops.backward_scratch(batch, 26, 64)
+    assert list(shapes) == ["sorted", "sort_scratch", "seg", "tickets", "partials"]
+    assert shapes["sorted"] == (26, 2, padded)
+    assert shapes["sort_scratch"] == ((0,) if in_shared else (26, 4, padded))
+    assert shapes["seg"] == (26, n_seg, 2) and shapes["tickets"] == (26, n_seg)
+    assert shapes["partials"] == (2, 26, n_seg, 64)
+
+
+@pytest.mark.parametrize("n_bytes,in_kernel", [(0, True), (26 * 5000 * 64 * 4, True),
+                                               (2**30, True), (2**30 + 4, False),
+                                               (26 * 10**6 * 64 * 4, False)])
+def test_zeroing_route_by_gradient_size(n_bytes, in_kernel):
+    """The sort's launch zeroes gradients up to 1 GiB (5K's 33 MB); a
+    cudaMemsetAsync zeroes larger ones (1M's 6.66 GB)."""
+    assert tops.zero_in_kernel(n_bytes) is in_kernel

@@ -75,3 +75,12 @@ def test_rejects_column_mismatch():
     with pytest.raises(ValueError, match="columns"):
         tfv.fused_update(t, torch.zeros((4, 2), dtype=torch.int32),
                          torch.ones(4, dtype=torch.bool))
+
+
+def test_tally_is_kept_per_device_and_stream():
+    """The kernel's row tally: int64 [1], zero when made, one per (device,
+    stream), the same tensor on every later call for that pair."""
+    a = tfv.tally("cpu", 101)
+    assert a.dtype == torch.int64 and a.shape == (1,) and int(a) == 0
+    assert tfv.tally(torch.device("cpu"), 101) is a
+    assert tfv.tally("cpu", 102) is not a
