@@ -242,7 +242,8 @@ def hostile_rows(np, seed: int, n_dense: int, n_sparse: int, n_rows: int,
                  truncate: int) -> bytes:
     """Rows of every hostile class: empty fields and all-delimiter rows,
     invalid and overlong hex, overlong decimals, stray minus signs, and
-    fields longer than the decode kernel's 4 KiB tile. ``truncate`` cuts
+    4136-byte fields, longer than the bytes-in kernels' 4 KiB tiles (and
+    than the decode kernel's 256-byte halo). ``truncate`` cuts
     that many bytes (the newline first) off the final row."""
     rng = np.random.default_rng(seed)
     rows = []
@@ -274,6 +275,53 @@ def hostile_rows(np, seed: int, n_dense: int, n_sparse: int, n_rows: int,
         rows.append("\t".join(label + dense + sparse).encode())
     raw = b"".join(r + b"\n" for r in rows)
     return raw[: len(raw) - min(truncate, len(rows[-1]) + 1)] if truncate else raw
+
+
+CRITEO_FIELDS, CRITEO_DENSE = 40, 13  # a label, 13 decimal and 26 hex fields a row
+
+
+def _row(np, rng, fields: int = CRITEO_FIELDS, field_len: int = 0) -> bytes:
+    """One row of ``fields`` fields: a label, decimal dense and hex sparse
+    values, or, with ``field_len``, a hex field that long in the last column."""
+    vals = [str(rng.integers(0, 2))]
+    vals += [str(rng.integers(-99, 10**6)) for _ in range(min(fields - 1, CRITEO_DENSE))]
+    vals += ["%x" % rng.integers(0, 2**32) for _ in range(fields - len(vals))]
+    if field_len:
+        vals[-1] = "".join(rng.choice(list(_HEX), size=field_len))
+    return ("\t".join(vals) + "\n").encode()
+
+
+def _exact_rows(np, rng, length: int) -> bytes:
+    """Whole rows of exactly ``length`` bytes (``length`` >= 400): random
+    rows, then one of empty fields whose last field fills the rest."""
+    out = b""
+    while len(out) + 300 + CRITEO_FIELDS <= length:
+        out += _row(np, rng)
+    last = length - len(out) - CRITEO_FIELDS
+    return out + b"\t" * (CRITEO_FIELDS - 1) + b"a" * last + b"\n"
+
+
+def decode_edge_chunks(np) -> list:
+    """(name, uint8 array, max_rows) of the decode kernel's edge cases,
+    Criteo rows, for tiles of 4, 8 or 16 KiB: empty and one-byte chunks, a
+    length no multiple of 16, a field longer than two 16 KiB tiles, rows a
+    field too long or short, a truncated final row, more delimiters than
+    cells, an all-padding chunk, and data that ends on a tile boundary and
+    one byte past it."""
+    rng = np.random.default_rng(7)
+    whole = b"".join(_row(np, rng) for _ in range(200))
+    long_field = b"".join(_row(np, rng, field_len=2 * 16384 + 700 if i == 3 else 0)
+                          for i in range(12))
+    widths = b"".join(_row(np, rng, CRITEO_FIELDS + (i % 3 == 1) - (i % 3 == 2))
+                      for i in range(60))
+    out = [("empty", b"", 64), ("one_byte", b"\n", 64), ("n_4097", whole[:4097], 64),
+           ("long_field_over_two_tiles", long_field, 64),
+           ("field_widths_off_by_one", widths, 64), ("truncated_row", whole[:-9], 256),
+           ("more_delims_than_cells", whole, 37), ("all_padding", bytes(3 * 16384 + 5), 64)]
+    for length in (8192, 16384):
+        ends = _exact_rows(np, rng, length)
+        out += [(f"ends_on_{length}", ends, 256), (f"ends_one_byte_past_{length}", ends + b"7", 256)]
+    return [(name, np.frombuffer(raw, np.uint8).copy(), mr) for name, raw, mr in out]
 
 
 class Smoke:
@@ -600,20 +648,30 @@ class Smoke:
             what = f"hostile chunk {seed} ({n_rows} rows, max_rows {max_rows})"
             byte_chunks.append((torch.from_numpy(hostile).to(dev), max_rows, what))
             decode_both(byte_chunks[-1][0], max_rows, what)
+        for name, arr, max_rows in decode_edge_chunks(np):
+            decode_both(torch.from_numpy(arr).to(dev), max_rows, f"edge chunk {name}")
+
+        # the launch floor: an empty kernel's device time on the same stream
+        floor_ms = self.launch_floor()
+        emit({"phase": "kernels", "launch_floor_ms": floor_ms,
+              "what": "device time of an empty kernel (fused_vocab.cu::empty_kernel)"})
+
         n = buf.numel()
         b_ms, b_by = bound(n + MAX_ROWS * (4 * sch.n_fields + 1), 12 * n)
+        stages = self.stages(lambda: dops.decode(buf, hex_table, **kw))
         record("decode_scan", {
             "max_abs_err": 0,
             **self.times(lambda: dops.decode(buf, hex_table, **kw),
                          lambda: dref.decode_bytes(buf, hex_table, **kw), plain_reps=5),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"{n} B chunk, max_rows {MAX_ROWS}",
+            # CUDA launches of one wrapper call, and each kernel's device
+            # ms per call, by name, from a short profiler pass
+            "cuda_launches_per_call": (None if stages is None
+                                       else sum(v["count"] for v in stages.values()) / 5),
+            "stages": stages,
+            "launch_floor_ms": floor_ms,
         })
-
-        # the launch floor: an empty kernel's device time on the same stream
-        floor_ms = self.launch_floor()
-        emit({"phase": "kernels", "launch_floor_ms": floor_ms,
-              "what": "device time of an empty kernel (fused_vocab.cu::empty_kernel)"})
 
         # loops ① and ②: the decoded chunk, into states with some history
         _, dense, sparse, valid = dops.decode(buf, hex_table, **kw)
@@ -691,7 +749,12 @@ class Smoke:
             self.sync()
             expect(torch.equal(ids_k, ids_r), f"fused_transform V={vr}: ids differ")
             expect(torch.equal(mod_k, mod_r), f"fused_mod_dense V={vr}: modded differ")
-            touched = int(torch.unique(col_base * vr + modded).numel())
+            slots = col_base * vr + modded
+            touched = int(torch.unique(slots).numel())
+            # the bound counts 4 bytes a touched slot; the 32-byte sectors of
+            # 8 slots that hold them are recorded beside it (the card reads
+            # sectors from device memory, but at 5K the table sits in L2)
+            sectors = int(torch.unique(slots // 8).numel())
             idx_t = modded.t().contiguous()
             io_bytes = rows * (n_cols + n_dense) * 4 * 2
             for name, dk, fn, plain, table_bytes, lib in (
@@ -714,6 +777,9 @@ class Smoke:
                 }
                 if lib:
                     rec["library_call"] = "torch.gather on pre-modded indices (ids only)"
+                    rec["table_sectors"] = sectors
+                    rec["bound_ms_by_sectors"] = bound(io_bytes + sectors * 32, 0)[0]
+                rec["launch_floor_ms"] = floor_ms
                 record(f"{name}@{tag}", rec)
 
             # the bytes-in loops ① and ②: the 1 MiB chunk and the hostile
@@ -1878,7 +1944,8 @@ def main(argv=None) -> int:
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "call_ms", "ms_from")},
             **{k: rec[k] for k in ("kernel_route", "tflops", "bound_share", "library_backend",
-                                   "fresh_ms", "binary", "launch_floor_ms", "stages")
+                                   "fresh_ms", "binary", "launch_floor_ms", "stages",
+                                   "cuda_launches_per_call", "table_sectors", "bound_ms_by_sectors")
                if k in rec},
             "on_main_path": name in PATH_KERNELS + TRAIN_KERNELS + SERVE_KERNELS,
             "shape": rec["shape"],

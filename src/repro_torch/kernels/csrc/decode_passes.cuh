@@ -1,6 +1,7 @@
-// The delimiter passes of the parallel UTF-8 decode, shared by the three
-// kernels that read raw bytes: decode_utf8.cu (the field table),
-// fused_decode_vocab.cu (loop ①) and fused_decode_xform.cu (loop ②).
+// The delimiter passes of the parallel UTF-8 decode, shared by the two
+// bytes-in kernels: fused_decode_vocab.cu (loop ①) and fused_decode_xform.cu
+// (loop ②). decode_utf8.cu runs the single-pass scan of lookback.cuh
+// instead, which these two can take in turn.
 //
 // They turn a byte chunk into the byte position of every delimiter with its
 // global ordinal, without an in-order grid:

@@ -20,7 +20,7 @@
 //   4. genvocab — one thread per sparse cell (row, c) of the max_rows rows.
 //      Rows at or past n_cap = min(#newlines, max_rows), read on the device
 //      from the scan's totals, are skipped. Each thread folds its field as
-//      decode_utf8.cu does (0 past the last delimiter) and does
+//      fold_field does (0 past the last delimiter) and does
 //      atomicMin(first_pos[c, value % V], pos), pos = rows_seen + row in
 //      uint32; a position at or past NEVER is skipped, which is what the
 //      reference's saturation at NEVER (the min identity) amounts to.

@@ -17,7 +17,7 @@
 // with the transform of a zero field. None of that is carried over: after the
 // shared delimiter passes (decode_passes.cuh),
 //   4. transform — one thread per output cell (row, col) of
-//      [max_rows, n_fields] folds its field as decode_utf8.cu does (0 past
+//      [max_rows, n_fields] folds its field with fold_field (0 past
 //      the last delimiter) and writes it straight to its output:
 //        label[row]         the raw value, and valid[row] = row < #newlines;
 //        dense[row, col-1]  log1pf(fmaxf((float)v, 0));

@@ -9,19 +9,30 @@ kept as a route so that the 1M choice can be made from a measurement.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core import vocab as vocab_lib
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_xform import ref
 
-_P, _I = _build.PTR, _build.INT
+_P, _I, _U64 = _build.PTR, _build.INT, ctypes.c_uint64
 KERNEL = _build.Kernel(
-    "fused_xform", "fused_transform", [_P, _P, _P, _P, _P, _I, _I, _I, _I]
+    "fused_xform", "fused_transform", [_P, _P, _P, _P, _P, _I, _I, _I, _U64, _I, _U64]
 )
 KERNEL_MOD_DENSE = _build.Kernel(
-    "fused_xform", "fused_mod_dense", [_P, _P, _P, _P, _I, _I, _I, _I]
+    "fused_xform", "fused_mod_dense", [_P, _P, _P, _P, _I, _I, _I, _U64, _I, _U64]
 )
+
+
+def fastmod_magic(d: int) -> int:
+    """``ceil(2**64 / d) mod 2**64``, the multiplier with which the kernel
+    takes ``v mod d`` for every uint32 ``v`` (Lemire's fastmod; exact for
+    ``1 <= d < 2**32``). ``d = 1`` gives 0, whose products are all 0."""
+    if not 1 <= d < 2**32:
+        raise ValueError(f"fastmod divisor {d} outside [1, 2**32)")
+    return ((2**64 - 1) // d + 1) % 2**64
 
 
 def _check_inputs(sparse: torch.Tensor, dense: torch.Tensor) -> None:
@@ -35,6 +46,10 @@ def _check_inputs(sparse: torch.Tensor, dense: torch.Tensor) -> None:
         )
     if rows * max(sparse.shape[1], dense.shape[1]) >= 2**31:
         raise ValueError("the kernel takes fewer than 2**31 elements per matrix")
+
+
+def _cols_magic(n_sparse: int) -> int:
+    return fastmod_magic(n_sparse) if n_sparse else 0
 
 
 def fused_transform(
@@ -60,7 +75,8 @@ def fused_transform(
         p = _build.ptr
         KERNEL.launch(
             dev, p(vocab.table), p(sparse), p(dense), p(ids), p(dense_out),
-            rows, n_sparse, n_dense, vocab.vocab_range,
+            rows, n_sparse, n_dense, _cols_magic(n_sparse), vocab.vocab_range,
+            fastmod_magic(vocab.vocab_range),
         )
     return ids, dense_out
 
@@ -82,6 +98,7 @@ def fused_mod_dense(
         p = _build.ptr
         KERNEL_MOD_DENSE.launch(
             dev, p(sparse), p(dense), p(modded), p(dense_out),
-            rows, n_sparse, n_dense, int(vocab_range),
+            rows, n_sparse, n_dense, _cols_magic(n_sparse), int(vocab_range),
+            fastmod_magic(int(vocab_range)),
         )
     return modded, dense_out

@@ -13,7 +13,7 @@ chip_smoke.py runs the same comparisons at the main path's full shapes.
 import numpy as np
 import pytest
 import torch
-from chip_smoke import hostile_rows
+from chip_smoke import decode_edge_chunks, hostile_rows
 
 from repro_torch.configs import gemma_2b as tgemma
 from repro_torch.configs import piper_dlrm as tcfg
@@ -78,6 +78,132 @@ def test_decode_kernel_matches_plain(cuda, criteo_small):
             kw = dict(n_fields=40, max_rows=max_rows, n_dense=13, n_sparse=26)
             for g, w in zip(dops.decode(b, hex_t, **kw), dref.decode_bytes(b, hex_t, **kw)):
                 assert torch.equal(g, w)
+
+
+_EDGE_CHUNKS = {name: (arr, max_rows) for name, arr, max_rows in decode_edge_chunks(np)}
+_CRITEO_HEX = np.arange(40) >= 14
+
+
+def _decode_kw(max_rows):
+    return dict(n_fields=40, max_rows=max_rows, n_dense=13, n_sparse=26)
+
+
+def _assert_decodes_as_plain(buf, max_rows, calls=2):
+    """``calls`` launches on ``buf``, each bit for bit the plain version's."""
+    want = dref.decode_bytes(buf, _CRITEO_HEX, **_decode_kw(max_rows))
+    for _ in range(calls):
+        got = dops.decode(buf, _CRITEO_HEX, **_decode_kw(max_rows))
+        for name, g, w in zip(("label", "dense", "sparse", "valid"), got, want):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("name", list(_EDGE_CHUNKS))
+def test_decode_single_pass_edge_chunks(cuda, name):
+    """The single-pass kernel on each edge case of the tile scan (fields
+    longer than two tiles, data that ends on a tile boundary and one byte
+    past it, n of 0, 1 and 4097, dropped rows, rows of the wrong width, a
+    truncated row, all padding), twice, bit for bit."""
+    arr, max_rows = _EDGE_CHUNKS[name]
+    _assert_decodes_as_plain(torch.from_numpy(arr).to(cuda), max_rows)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 7])
+def test_decode_single_pass_synth_chunk_in_one_launch(cuda, offset):
+    """A 1 MiB synth chunk at max_rows 16384 (also read from an address
+    that is no multiple of 16): one wrapper launch per call, twice the
+    plain version's bits."""
+    buf, _ = synth.make_dataset(synth.SynthConfig(rows=8000, seed=0))
+    chunk = next(iter(synth.chunk_stream(buf, 1 << 20)))
+    padded = torch.zeros(chunk.size + offset, dtype=torch.uint8, device=cuda)
+    padded[offset:] = torch.from_numpy(chunk).to(cuda)
+    b = padded[offset:]
+    before = dops.KERNEL.launches
+    _assert_decodes_as_plain(b, 1 << 14)
+    assert dops.KERNEL.launches == before + 2
+
+
+def test_decode_streams_keep_their_own_scratch(cuda):
+    """Chunks back to back on two streams at once: each stream's calls use
+    their own look-back scratch, and every result is the plain version's."""
+    chunks = [torch.from_numpy(_EDGE_CHUNKS[n][0]).to(cuda)
+              for n in ("truncated_row", "long_field_over_two_tiles", "ends_on_16384")]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(st):
+            outs.append([dops.decode(c, _CRITEO_HEX, **_decode_kw(256)) for c in chunks * 3])
+    torch.cuda.synchronize()
+    handles = [st.cuda_stream for st in streams]
+    sizes = [dops._scratch_ints(c.numel()) for c in chunks]
+    assert dops.scan_scratch(cuda, handles[0], max(sizes)) is not dops.scan_scratch(
+        cuda, handles[1], max(sizes))
+    for per_stream in outs:
+        for c, got in zip(chunks * 3, per_stream):
+            want = dref.decode_bytes(c, _CRITEO_HEX, **_decode_kw(256))
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+
+
+def _synth_chunk(size, rows=1 << 16):
+    buf, _ = synth.make_dataset(synth.SynthConfig(rows=rows, seed=0))
+    return next(iter(synth.chunk_stream(buf, size)))
+
+
+@pytest.mark.parametrize("size", [2 << 20, 4 << 20], ids=["2MiB", "4MiB"])
+def test_decode_single_pass_larger_chunks(cuda, size):
+    """Chunks of more tiles than the card has SMs (2 and 4 MiB of synth
+    rows at max_rows 16384, and the hostile chunks of 4136-byte fields),
+    twice, bit for bit."""
+    _assert_decodes_as_plain(torch.from_numpy(_synth_chunk(size)).to(cuda), 1 << 14)
+    for seed, n_rows, max_rows in ((0, 3000, 2048), (1, 3000, 4096)):
+        buf = _hostile(seed, n_rows, 7 * (seed == 0))
+        _assert_decodes_as_plain(torch.from_numpy(buf).to(cuda), max_rows)
+
+
+def test_decode_full_size_chunks_on_two_streams_at_once(cuda):
+    """1 and 4 MiB chunks decoded on two streams at once, back to back:
+    every launch ends (no block waits on one of another launch or on one
+    that has not started) and every result is the plain version's."""
+    chunks = [torch.from_numpy(_synth_chunk(size)).to(cuda) for size in (1 << 20, 4 << 20)]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = [[], []]
+    for _ in range(4):
+        for i, st in enumerate(streams):
+            st.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(st):
+                outs[i] += [dops.decode(c, _CRITEO_HEX, **_decode_kw(1 << 14)) for c in chunks]
+    torch.cuda.synchronize()
+    wants = [dref.decode_bytes(c, _CRITEO_HEX, **_decode_kw(1 << 14)) for c in chunks]
+    for per_stream in outs:
+        for i, got in enumerate(per_stream):
+            for g, w in zip(got, wants[i % 2]):
+                assert torch.equal(g, w)
+
+
+def test_decode_refuses_graph_capture(cuda):
+    """A CUDA graph would replay one look-back epoch: capture raises."""
+    buf = torch.from_numpy(_EDGE_CHUNKS["truncated_row"][0]).to(cuda)
+    _assert_decodes_as_plain(buf, 256, calls=1)  # built and warmed up first
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            dops.decode(buf, _CRITEO_HEX, **_decode_kw(256))
+
+
+def test_decode_epoch_wraps_without_a_stale_word(cuda):
+    """Calls across the epoch's wrap (the scratch started three calls short
+    of it): the wrap zeroes the status words, and every call still decodes
+    bit for bit, chunks of different tile counts in turn."""
+    chunks = [torch.from_numpy(_EDGE_CHUNKS[n][0]).to(cuda)
+              for n in ("more_delims_than_cells", "ends_on_8192", "long_field_over_two_tiles")]
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    scratch = dops.scan_scratch(cuda, stream, max(dops._scratch_ints(c.numel()) for c in chunks))
+    scratch.epoch = dops.EPOCH_LIMIT - 3
+    for i in range(8):
+        c = chunks[i % 3]
+        _assert_decodes_as_plain(c, 37 if i % 3 == 0 else 256, calls=1)
+    assert scratch.epoch == 6  # two calls to the limit, then 1..6
 
 
 @pytest.mark.parametrize("vocab_range", [97, 5000, 1_000_000])
@@ -194,6 +320,38 @@ def test_xform_kernels_match_plain(cuda, vocab_range):
     mod, d2 = fxops.fused_mod_dense(sparse, dense, vocab_range=vocab_range)
     assert torch.equal(mod, fxref.fused_mod_dense(sparse, dense, vocab_range)[0])
     torch.testing.assert_close(d2, d_r, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("vocab_range", [1, 2, 97, 4096, 5000, 1_000_000, 2**31 - 1])
+@pytest.mark.parametrize("shape", ["4099x26+13", "37x3+0", "1x5+2", "offset_view"])
+def test_fused_transform_edges_match_plain(cuda, vocab_range, shape):
+    """The vectorised kernel and its fastmod at the divisor's edges (V = 1,
+    a power of two, 2^31 - 1 with one column: an 8 GiB table), hashes at
+    int32 min and max, -1 and V - 1, row counts that are no multiple of
+    4, no dense columns, and rows read from an address that is no multiple
+    of 16 (the scalar path); twice, ids bit for bit, dense at rtol 1e-6."""
+    rows, n_sparse, n_dense = {"4099x26+13": (4099, 26, 13), "37x3+0": (37, 3, 0),
+                               "1x5+2": (1, 5, 2), "offset_view": (301, 26, 13)}[shape]
+    if vocab_range == 2**31 - 1:
+        n_sparse = 1
+    rng = np.random.default_rng(vocab_range % 997 + rows)
+    sparse = rng.integers(-(2**31), 2**31, (rows + 1, n_sparse), dtype=np.int64)
+    sparse.flat[:4] = [-(2**31), 2**31 - 1, -1, vocab_range - 1][: sparse.size]
+    dense = rng.integers(-500, 10**6, (rows + 1, n_dense))
+    sp = torch.from_numpy(sparse.astype(np.int32)).to(cuda)
+    de = torch.from_numpy(dense.astype(np.int32)).to(cuda)
+    sp, de = (sp[1:], de[1:]) if shape == "offset_view" else (sp[:rows], de[:rows])
+    table = torch.randint(0, 2**31 - 1, (n_sparse, vocab_range), dtype=torch.int32, device=cuda)
+    vocab = tvocab.Vocabulary(table=table, sizes=torch.zeros(n_sparse, dtype=torch.int32))
+    ids_r, d_r = fxref.fused_transform(table, sp, de)
+    mod_r = fxref.fused_mod_dense(sp, de, vocab_range)[0]
+    for _ in range(2):
+        ids, d = fxops.fused_transform(vocab, sp, de)
+        assert torch.equal(ids, ids_r)
+        torch.testing.assert_close(d, d_r, rtol=1e-6, atol=0)
+        mod, d2 = fxops.fused_mod_dense(sp, de, vocab_range=vocab_range)
+        assert torch.equal(mod, mod_r)
+        torch.testing.assert_close(d2, d_r, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("fmt", ["utf8", "binary"])

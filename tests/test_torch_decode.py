@@ -85,3 +85,30 @@ def test_ref_handles_permuted_layout():
         tdops.decode(torch.from_numpy(buf), hex_t, **kw)
     with pytest.raises(ValueError, match="contiguous decimal-then-hex"):
         tdops.decode(torch.from_numpy(buf), torch.from_numpy(hex_t), **kw)
+
+
+# -- the kernel's look-back scratch (host side; the card tests run it) ----- #
+def test_scan_scratch_epochs_count_from_one_and_wrap_with_a_zeroing():
+    s = tdops.ScanScratch(16, torch.device("cpu"))
+    assert s.words.dtype == torch.int32 and not s.words.any()
+    assert [s.next_epoch() for _ in range(3)] == [1, 2, 3]
+    s.words.fill_(7)  # status words of earlier calls
+    s.epoch = tdops.EPOCH_LIMIT - 2
+    assert s.next_epoch() == tdops.EPOCH_LIMIT - 1
+    assert s.words.eq(7).all()
+    assert s.next_epoch() == 1  # the epochs ran out: the words are zeroed
+    assert not s.words.any()
+    assert s.next_epoch() == 2
+
+
+def test_scan_scratch_is_kept_per_stream_and_grows_zeroed():
+    dev = torch.device("cpu")
+    a = tdops.scan_scratch(dev, 111, 40)
+    a.next_epoch()
+    assert tdops.scan_scratch(dev, 111, 40) is a  # kept, epoch and all
+    assert tdops.scan_scratch(dev, 111, 12) is a
+    assert tdops.scan_scratch(dev, 222, 40) is not a  # another stream
+    a.words.fill_(3)
+    b = tdops.scan_scratch(dev, 111, 41)  # a larger chunk: new words, zeroed
+    assert b is not a and b.words.numel() == 41 and not b.words.any() and b.epoch == 0
+    assert tdops.scan_scratch(dev, 111, 41) is b

@@ -10,6 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+try:
+    from hypothesis import given, settings, strategies as st
+except ModuleNotFoundError:
+    from tests._hypothesis_fallback import given, settings, strategies as st
+
 from repro.core import vocab as jvocab
 from repro.kernels.fused_xform import kernel as jfx_kernel
 from repro.kernels.fused_xform import ops as jfx
@@ -51,3 +56,59 @@ def test_fused_mod_dense(vocab_range):
     )
     np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
     np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-6)
+
+
+# -- the kernel's modulus: Lemire's fastmod from the wrapper's magic -------- #
+_MASK32 = np.uint64(0xFFFFFFFF)
+
+
+def _fastmod(v: np.ndarray, d: int) -> np.ndarray:
+    """csrc/fused_xform.cu::fastmod in numpy uint64 (products wrap mod
+    2**64 as on the card): hi64(lo64(M * v) * d), the high half built from
+    32-bit halves as the kernel builds it."""
+    m = np.uint64(tfx.fastmod_magic(d))
+    v = v.astype(np.uint64)
+    with np.errstate(over="ignore"):
+        low = m * v
+    hi = (low >> np.uint64(32)) * np.uint64(d) + (((low & _MASK32) * np.uint64(d)) >> np.uint64(32))
+    return (hi >> np.uint64(32)).astype(np.uint32)
+
+
+_EDGE_V = np.array([0, 1, 2, 3, 96, 97, 98, 4095, 4096, 4097, 4999, 5000, 5001, 999_999,
+                    1_000_000, 2**31 - 2, 2**31 - 1, 2**31, 2**31 + 1, 2**32 - 2, 2**32 - 1],
+                   dtype=np.uint64)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 13, 26, 97, 4096, 5000, 65536, 1_000_000,
+                               2**30, 2**31 - 1])
+def test_fastmod_is_exact_at_edge_values(d):
+    """Every edge hash (0, d - 1, d, d + 1, int32 min/max as uint32,
+    2**32 - 1, ...) and a seeded sample of 2**16 hashes, against %."""
+    rng = np.random.default_rng(d)
+    v = np.concatenate([_EDGE_V, np.array([d - 1, d, d + 1, 2 * d - 1, 2 * d], np.uint64)
+                        % np.uint64(2**32),
+                        rng.integers(0, 2**32, 2**16, dtype=np.uint64)])
+    np.testing.assert_array_equal(_fastmod(v, d), (v % np.uint64(d)).astype(np.uint32))
+
+
+def test_fastmod_is_exact_on_a_seeded_sample_of_divisors():
+    rng = np.random.default_rng(19)
+    for d in rng.integers(1, 2**31, 200):
+        v = np.concatenate([_EDGE_V, rng.integers(0, 2**32, 4096, dtype=np.uint64)])
+        np.testing.assert_array_equal(_fastmod(v, int(d)), (v % np.uint64(d)).astype(np.uint32))
+
+
+def test_fastmod_magic_values_and_range():
+    assert tfx.fastmod_magic(1) == 0  # 2**64 wraps: every product is 0, and so is v mod 1
+    assert tfx.fastmod_magic(2) == 2**63
+    assert tfx.fastmod_magic(3) == 2**64 // 3 + 1
+    assert tfx.fastmod_magic(2**31 - 1) == -(-(2**64) // (2**31 - 1))
+    for bad in (0, -1, 2**32):
+        with pytest.raises(ValueError):
+            tfx.fastmod_magic(bad)
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(0, 2**32 - 1), st.integers(1, 2**31 - 1))
+def test_fastmod_property(v, d):
+    assert int(_fastmod(np.array([v], np.uint64), d)[0]) == v % d
