@@ -233,6 +233,38 @@ def bound(n_bytes: int, n_ops: int, ops_per_s: float = CUDA_CORE_OPS_PER_S) -> t
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def traced_kernels(torch, fn, calls: int) -> list:
+    """The device events (kernels and copies, by name) of one torch.profiler
+    trace over ``calls`` calls of ``fn``, recorded after a warm-up round of
+    ``calls`` calls that the profiler traces and drops (a trace may miss the
+    first launches after it starts)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_kernels(torch, fn, calls: int = 5, traces: int = 6) -> dict:
+    """Device kernels and copies by name over ``calls`` calls of ``fn``:
+    the largest count each name reached in one of up to ``traces`` traces
+    of :func:`traced_kernels`. A trace now and then drops events (never
+    adds one), so the traces stop once one holds ``calls`` events of one
+    name."""
+    found = {}
+    for _ in range(traces):
+        for e in traced_kernels(torch, fn, calls):
+            found[e.key] = max(found.get(e.key, 0), e.count)
+        if calls in found.values():
+            break
+    return found
+
+
 _HEX = "0123456789abcdef"
 HOSTILE_KINDS = ("normal", "empty_fields", "all_delim", "invalid_hex", "overlong_hex",
                  "overlong_decimal", "weird_minus", "long_straddle")
@@ -302,19 +334,30 @@ def _exact_rows(np, rng, length: int) -> bytes:
 
 
 def decode_edge_chunks(np) -> list:
-    """(name, uint8 array, max_rows) of the decode kernel's edge cases,
+    """(name, uint8 array, max_rows) of the decode kernels' edge cases,
     Criteo rows, for tiles of 4, 8 or 16 KiB: empty and one-byte chunks, a
-    length no multiple of 16, a field longer than two 16 KiB tiles, rows a
+    length no multiple of 16, a field longer than two 16 KiB tiles, a field
+    longer than the 256-byte halo across the 8 KiB tile boundary, rows a
     field too long or short, a truncated final row, more delimiters than
     cells, an all-padding chunk, and data that ends on a tile boundary and
-    one byte past it."""
+    one byte past it (8193 bytes)."""
     rng = np.random.default_rng(7)
     whole = b"".join(_row(np, rng) for _ in range(200))
     long_field = b"".join(_row(np, rng, field_len=2 * 16384 + 700 if i == 3 else 0)
                           for i in range(12))
     widths = b"".join(_row(np, rng, CRITEO_FIELDS + (i % 3 == 1) - (i % 3 == 2))
                       for i in range(60))
+    # a field longer than the 256-byte halo that begins 570-ish bytes before
+    # byte 8192 and ends 300 bytes after it: across the 8 KiB tile boundary
+    head = b""
+    while len(head) + 900 <= 8192:
+        head += _row(np, rng)
+    row = _row(np, rng)
+    row = row[: row.rindex(b"\t") + 1]
+    field = "".join(rng.choice(list(_HEX), size=8192 + 300 - len(head) - len(row))).encode()
+    over_halo = head + row + field + b"\n" + b"".join(_row(np, rng) for _ in range(5))
     out = [("empty", b"", 64), ("one_byte", b"\n", 64), ("n_4097", whole[:4097], 64),
+           ("field_over_halo_across_8192", over_halo, 64),
            ("long_field_over_two_tiles", long_field, 64),
            ("field_widths_off_by_one", widths, 64), ("truncated_row", whole[:-9], 256),
            ("more_delims_than_cells", whole, 37), ("all_padding", bytes(3 * 16384 + 5), 64)]
@@ -451,23 +494,22 @@ class Smoke:
 
     def stages(self, fn, reps: int = 5) -> dict | None:
         """Device ms per call of each kernel and memset that ``fn`` runs, by
-        name, from one short torch.profiler pass over ``reps`` calls (short,
-        so the trace keeps every launch); None in a rehearsal."""
+        name, from one short trace over ``reps`` calls (short, so the trace
+        keeps every launch; :func:`traced_kernels`); None in a rehearsal."""
         if self.rehearse:
             fn()
             return None
-        torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
         return {e.key[:60]: {"count": e.count, "ms": e.self_device_time_total / 1e3 / reps}
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total}
+                for e in traced_kernels(self.torch, fn, reps) if e.self_device_time_total}
+
+    def kernels_per_call(self, fn, reps: int = 5) -> dict | None:
+        """Device kernels and copies of one call of ``fn`` by name
+        (:func:`device_kernels` over ``reps`` calls, over ``reps``); None
+        in a rehearsal."""
+        if self.rehearse:
+            fn()
+            return None
+        return {name[:60]: n / reps for name, n in device_kernels(self.torch, fn, reps).items()}
 
     def launch_floor(self) -> float | None:
         """Device ms of one empty kernel (csrc/fused_vocab.cu), launched
@@ -609,7 +651,6 @@ class Smoke:
         torch, np, dev = self.torch, self.np, self.dev
         from repro_torch.core import ops, schema as schema_lib, vocab as vocab_lib
         from repro_torch.core.uint32 import as_u32
-        from repro_torch.kernels import _build
         from repro_torch.kernels.decode_utf8 import ops as dops, ref as dref
         from repro_torch.kernels.dense_xform import ops as dxops, ref as dxref
         from repro_torch.kernels.fused_decode_vocab import ops as fdvops, ref as fdvref
@@ -805,13 +846,8 @@ class Smoke:
                            f"{where}: rows_seen differs")
                 got = fdxops.fused_decode_transform(vocab, b, max_rows=max_rows, **fkw)
                 want = fdxref.fused_decode_transform(vocab, b, max_rows=max_rows, **fkw)
-                self.sync()
-                where = f"fused_decode_transform V={vr}, {what}"
-                for i, name in ((0, "label"), (2, "ids"), (3, "valid")):
-                    expect(torch.equal(got[i], want[i]), f"{where}: {name} differs")
-                expect(torch.allclose(got[1], want[1], rtol=1e-6, atol=0),
-                       f"{where}: dense beyond rtol 1e-6")
-                err = max(err, float((got[1] - want[1]).abs().max()))
+                err = max(err, self._xform_same(got, want,
+                                                f"fused_decode_transform V={vr}, {what}"))
             st = vocab_lib.VocabState(base.first_pos.clone(), base.rows_seen.clone())
             n = buf.numel()
             # the chunk in, rows_seen in and out, each state slot that the
@@ -831,6 +867,9 @@ class Smoke:
             out_bytes = MAX_ROWS * (4 + 4 * n_dense + 4 * n_cols + 1)
             b_ms, b_by = bound(n + touched * 4 + out_bytes,
                                12 * n + rows * (3 * n_cols + 20 * n_dense))
+            err = max(err, self.decode_xform_checks(data, vocab, fdxops, fdxref, dops, tag))
+            per_call = self.kernels_per_call(
+                lambda: fdxops.fused_decode_transform(vocab, buf, max_rows=MAX_ROWS, **fkw))
             record(f"fused_decode_transform@{tag}", {
                 "max_abs_err": err,
                 **self.times(
@@ -839,7 +878,13 @@ class Smoke:
                     plain_reps=5),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "shape": f"{n} B chunk, max_rows {MAX_ROWS}, table [{n_cols}, {vr}]",
+                "cuda_launches_per_call": (None if per_call is None
+                                           else sum(per_call.values())),
+                "kernels_per_call": per_call,
             })
+            expect(per_call is None or list(per_call.values()) == [1],
+                   f"fused_decode_transform V={vr}: device work per call {per_call}, "
+                   "expected one kernel")
 
             # the per-op kernels of the crossed plan's use_kernels route, on
             # its 27 vocab columns (the 26 sparse and the cross of columns 0
@@ -856,27 +901,7 @@ class Smoke:
             for c in data["utf8_chunks"][1:3]:
                 b = dops.decode(torch.from_numpy(c).to(dev), hex_table, **kw)
                 base27 = ops.fused_vocab_update(base27, crossed(b[2]), b[3], use_kernel=False)
-            for track in (False, True):
-                for rows_seen in offsets:
-                    def fresh27():
-                        return vocab_lib.VocabState(
-                            base27.first_pos.clone(),
-                            torch.tensor(rows_seen, dtype=torch.int32, device=dev),
-                            base27.counts.clone() if track else None)
-
-                    got = vops.genvocab_update(fresh27(), modded27, valid)
-                    want = fresh27()
-                    pos = vocab_lib.positions(want.rows_seen, rows, valid)
-                    want_seen = vocab_lib.advance_rows_seen(
-                        want.rows_seen, valid.to(torch.int32).sum())
-                    self.sync()
-                    what = f"genvocab V={vr} counts={track} rows_seen={rows_seen}"
-                    expect(torch.equal(got.first_pos, vref.genvocab(want.first_pos, mt, pos)),
-                           f"{what}: first_pos differs")
-                    expect(torch.equal(got.rows_seen, want_seen), f"{what}: rows_seen differs")
-                    if track:
-                        expect(torch.equal(got.counts, vref.genvocab_counts(want.counts, mt, pos)),
-                               f"{what}: counts differ")
+            self.genvocab_checks(vops, vocab_lib, base27, modded27, valid, tag)
             st = vocab_lib.VocabState(base27.first_pos.clone(), base27.rows_seen.clone())
             pos = vocab_lib.positions(st.rows_seen, rows, valid)
             slots27 = torch.arange(n27, device=dev)[None, :] * vr + modded27
@@ -884,32 +909,32 @@ class Smoke:
             touched27 = int(torch.unique(slots27[live]).numel())
             idx_t = mt.to(torch.int64).contiguous()
             src = pos[None, :].expand_as(idx_t).contiguous()
-            p = _build.ptr
-
-            def genvocab_kernel():
-                """The kernel alone, on the positions made above (the
-                wrapper also computes them and the new rows_seen)."""
-                if self.rehearse:
-                    return vops.genvocab_update(st, modded27, valid)
-                vops.KERNEL_GENVOCAB.launch(
-                    dev, p(st.first_pos), None, p(modded27), p(pos), rows, n27, vr)
-
-            wrapper = self.time_ms(lambda: vops.genvocab_update(st, modded27, valid))
-            # positions in, the live rows' modded values in (the kernel skips a
-            # NEVER row before it reads them), each touched state slot read
-            # and written once; a compare and a min per live cell
+            # valid flags in, the live rows' modded values in (the kernel skips
+            # an invalid row before it reads them), rows_seen in and out, each
+            # touched state slot read and written once; a compare and a min
+            # per live cell
             live_rows = int(live.any(1).sum())
-            b_ms, b_by = bound(live_rows * n27 * 4 + rows * 4 + touched27 * 8,
+            b_ms, b_by = bound(live_rows * n27 * 4 + rows + 8 + touched27 * 8,
                                2 * live_rows * n27)
+            per_call = self.kernels_per_call(lambda: vops.genvocab_update(st, modded27, valid))
             record(f"genvocab@{tag}", {
                 "max_abs_err": 0,
-                **self.times(genvocab_kernel, lambda: vref.genvocab(st.first_pos, mt, pos),
+                # the whole call, which is one launch; its plain version is
+                # vocab.update (positions, scatter-min, rows_seen)
+                **self.times(lambda: vops.genvocab_update(st, modded27, valid),
+                             lambda: vocab_lib.update(st, modded27, valid),
                              lambda: st.first_pos.scatter_reduce_(1, idx_t, src, reduce="amin")),
-                "wrapper_ms": wrapper["device_ms"], "wrapper_call_ms": wrapper["call_ms"],
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_call": "Tensor.scatter_reduce_(amin) on the transposed int64 indices",
+                "library_call": "Tensor.scatter_reduce_(amin) on the transposed int64 indices "
+                                "and positions made beforehand (it leaves out the positions "
+                                "and rows_seen)",
                 "shape": f"modded [{rows}, {n27}] into [{n27}, {vr}]",
+                "cuda_launches_per_call": (None if per_call is None
+                                           else sum(per_call.values())),
+                "kernels_per_call": per_call,
             })
+            expect(per_call is None or list(per_call.values()) == [1],
+                   f"genvocab V={vr}: device work per call {per_call}, expected one kernel")
             vocab27 = vocab_lib.finalize(base27)
             ids_k = vops.apply_vocab(vocab27.table, modded27)
             self.sync()
@@ -949,6 +974,136 @@ class Smoke:
             "shape": f"int32 [{d12.shape[0]}, {d12.shape[1]}]",
         })
         return records
+
+    def genvocab_checks(self, vops, vocab_lib, base, modded, valid, tag: str) -> None:
+        """genvocab against its plain version (vocab.update), bit for bit on
+        first_pos, counts and rows_seen, into ``base``'s history: the
+        chunk's own valid rows (a prefix), a valid mask that is no prefix,
+        no valid row, and 40 columns (the 27 and 13 more), each at offsets 0
+        and NEVER - 3, with and without counts; then chunks on two streams
+        at once, each into its own state."""
+        torch, np, dev = self.torch, self.np, self.dev
+        rows, n_cols = modded.shape
+        rng = np.random.default_rng(27)
+        scattered = torch.from_numpy(rng.random(rows) < 0.5).to(dev)
+        modded40 = torch.cat([modded, modded[:, :13].flip(0)], dim=1).contiguous()
+        # (on the CPU the wrapper's host-side ceiling guard raises at NEVER - 3)
+        offsets = [0] + ([] if self.rehearse else [vocab_lib.NEVER - 3])
+
+        def fresh(m, track, rows_seen):
+            extra = m.shape[1] - n_cols
+            return vocab_lib.VocabState(
+                torch.cat([base.first_pos, base.first_pos[:extra]]),
+                torch.tensor(rows_seen, dtype=torch.int32, device=dev),
+                torch.cat([base.counts, base.counts[:extra]]) if track else None)
+
+        for what, m, v in (("the chunk's valid rows", modded, valid),
+                           ("no-prefix valid", modded, scattered),
+                           ("no valid row", modded, torch.zeros_like(valid)),
+                           ("40 columns", modded40, scattered)):
+            for track in (False, True):
+                for rows_seen in offsets:
+                    got = vops.genvocab_update(fresh(m, track, rows_seen), m, v)
+                    want = vocab_lib.update(fresh(m, track, rows_seen), m, v)
+                    self.sync()
+                    where = f"genvocab {tag} {what} counts={track} rows_seen={rows_seen}"
+                    for f in ("first_pos", "rows_seen") + (("counts",) if track else ()):
+                        expect(torch.equal(getattr(got, f), getattr(want, f)),
+                               f"{where}: {f} differs")
+        if self.rehearse:
+            return
+        streams = [torch.cuda.Stream() for _ in range(2)]
+        outs = []
+        for i, st in enumerate(streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                state = fresh(modded, True, 100 * i)
+                for _ in range(3):
+                    state = vops.genvocab_update(state, modded, scattered)
+                outs.append(state)
+        torch.cuda.synchronize()
+        for i, got in enumerate(outs):
+            want = fresh(modded, True, 100 * i)
+            for _ in range(3):
+                want = vocab_lib.update(want, modded, scattered)
+            for f in ("first_pos", "counts", "rows_seen"):
+                expect(torch.equal(getattr(got, f), getattr(want, f)),
+                       f"genvocab {tag} on two streams at once: {f} differs on stream {i}")
+
+    def _xform_same(self, got, want, where: str) -> float:
+        """Bytes-in loop ②'s outputs against the plain version's: label, ids
+        and valid bit for bit, dense at rtol 1e-6. Returns dense's max
+        absolute error."""
+        torch = self.torch
+        self.sync()
+        for i, name in ((0, "label"), (2, "ids"), (3, "valid")):
+            expect(torch.equal(got[i], want[i]), f"{where}: {name} differs")
+        expect(torch.allclose(got[1], want[1], rtol=1e-6, atol=0),
+               f"{where}: dense beyond rtol 1e-6")
+        return float((got[1] - want[1]).abs().max()) if got[1].numel() else 0.0
+
+    def decode_xform_checks(self, data, vocab, fdxops, fdxref, dops, tag: str) -> float:
+        """fused_decode_transform against its plain version on the feed's
+        first 2 and 4 MiB chunks, its 1 MiB chunk at max_rows 1000 (below its
+        rows), and a field longer than the 256-byte halo across the 8 KiB
+        tile boundary; then across an epoch wrap of the look-back scratch
+        (decode and it in turn), and on two streams at once. Returns dense's
+        max absolute error."""
+        torch, np, dev = self.torch, self.np, self.dev
+        from repro_torch.data import synth
+        from repro_torch.kernels import _scratch
+        from repro_torch.kernels.decode_utf8 import ref as dref
+
+        fkw = dict(n_fields=CRITEO_FIELDS, hex_start=1 + CRITEO_DENSE)
+        hex_t = np.arange(CRITEO_FIELDS) > CRITEO_DENSE
+        dkw = dict(n_fields=CRITEO_FIELDS, n_dense=CRITEO_DENSE,
+                   n_sparse=CRITEO_FIELDS - 1 - CRITEO_DENSE)
+        edge = {name: (arr, mr) for name, arr, mr in decode_edge_chunks(np)}
+        cases = [(f"synth {size >> 20} MiB", next(iter(synth.chunk_stream(data["utf8_buf"], size))),
+                  MAX_ROWS) for size in (2 << 20, 4 << 20)]
+        cases += [("synth 1 MiB at max_rows 1000", data["utf8_chunks"][0], 1000),
+                  ("field over the halo across 8192", *edge["field_over_halo_across_8192"])]
+        bufs = [(what, torch.from_numpy(arr).to(dev), mr) for what, arr, mr in cases]
+        err = 0.0
+        for what, b, mr in bufs:
+            got = fdxops.fused_decode_transform(vocab, b, max_rows=mr, **fkw)
+            want = fdxref.fused_decode_transform(vocab, b, max_rows=mr, **fkw)
+            err = max(err, self._xform_same(got, want, f"fused_decode_transform {tag}, {what}"))
+        if self.rehearse:
+            return err
+        wants = [fdxref.fused_decode_transform(vocab, b, max_rows=mr, **fkw) for _, b, mr in bufs]
+        # the scratch made above holds the largest chunk: the next call wraps
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch = _scratch.scan_scratch(dev, stream, 0)
+        scratch.epoch = _scratch.EPOCH_LIMIT - 1
+        for i in range(4):
+            what, b, mr = bufs[i % len(bufs)]
+            where = f"{tag} across the epoch wrap, {what}"
+            if i % 2:
+                got = dops.decode(b, hex_t, max_rows=mr, **dkw)
+                want = dref.decode_bytes(b, hex_t, max_rows=mr, **dkw)
+                self.sync()
+                for name, g, w in zip(("label", "dense", "sparse", "valid"), got, want):
+                    expect(torch.equal(g, w), f"decode {where}: {name} differs")
+            else:
+                got = fdxops.fused_decode_transform(vocab, b, max_rows=mr, **fkw)
+                err = max(err, self._xform_same(got, wants[i % len(bufs)],
+                                                f"fused_decode_transform {where}"))
+        expect(_scratch.scan_scratch(dev, stream, 0) is scratch and scratch.epoch == 4,
+               f"fused_decode_transform {tag}: epoch {scratch.epoch} after the wrap, expected 4")
+        streams = [torch.cuda.Stream() for _ in range(2)]
+        outs = [[], []]
+        for i, st in enumerate(streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                for _, b, mr in bufs:
+                    outs[i].append(fdxops.fused_decode_transform(vocab, b, max_rows=mr, **fkw))
+        torch.cuda.synchronize()
+        for i, per_stream in enumerate(outs):
+            for (what, _, _), got, want in zip(bufs, per_stream, wants):
+                err = max(err, self._xform_same(
+                    got, want, f"fused_decode_transform {tag} on stream {i} of two, {what}"))
+        return err
 
     def embedding_kernels(self, record, data, tag: str, vocab, kw) -> None:
         """The DLRM's embedding gather and its gradient at the train phase's
@@ -1945,7 +2100,8 @@ def main(argv=None) -> int:
                                    "library_ms", "call_ms", "ms_from")},
             **{k: rec[k] for k in ("kernel_route", "tflops", "bound_share", "library_backend",
                                    "fresh_ms", "binary", "launch_floor_ms", "stages",
-                                   "cuda_launches_per_call", "table_sectors", "bound_ms_by_sectors")
+                                   "cuda_launches_per_call", "table_sectors", "bound_ms_by_sectors",
+                                   "kernels_per_call")
                if k in rec},
             "on_main_path": name in PATH_KERNELS + TRAIN_KERNELS + SERVE_KERNELS,
             "shape": rec["shape"],

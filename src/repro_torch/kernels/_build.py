@@ -167,10 +167,10 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def decode_scratch(source: str, n: int, cap: int, device: torch.device) -> torch.Tensor:
-    """The int32 scratch of one call of a bytes-in kernel
-    (fused_decode_vocab.cu, fused_decode_xform.cu), which runs the shared
-    decode passes of csrc/decode_passes.cuh over ``n`` bytes, keeping the
-    positions of the first ``cap`` delimiters."""
+    """The int32 scratch of one call of the bytes-in loop-① kernel
+    (fused_decode_vocab.cu), which runs the decode passes of
+    csrc/decode_passes.cuh over ``n`` bytes, keeping the positions of the
+    first ``cap`` delimiters."""
     fn = library(source).decode_scratch_ints
     fn.argtypes = [INT64, INT64]
     fn.restype = INT64

@@ -1,7 +1,8 @@
-// The delimiter passes of the parallel UTF-8 decode, shared by the two
-// bytes-in kernels: fused_decode_vocab.cu (loop ①) and fused_decode_xform.cu
-// (loop ②). decode_utf8.cu runs the single-pass scan of lookback.cuh
-// instead, which these two can take in turn.
+// The delimiter passes of the parallel UTF-8 decode, which the bytes-in
+// loop-① kernel (fused_decode_vocab.cu) still runs. decode_utf8.cu and the
+// bytes-in loop-② kernel (fused_decode_xform.cu) run the single-pass scan
+// of decode_tiles.cuh and lookback.cuh instead, which this one can take in
+// turn.
 //
 // They turn a byte chunk into the byte position of every delimiter with its
 // global ordinal, without an in-order grid:
@@ -11,7 +12,7 @@
 //                (totals[0] = #delimiters, totals[1] = #newlines);
 //   3. compact — each tile writes the byte position of every delimiter whose
 //                ordinal k is below cap to delim_pos[k].
-// Each kernel then runs its own last pass: one thread per field ordinal k
+// The kernel then runs its own last pass: one thread per field ordinal k
 // it needs, which folds the field's bytes with fold_field().
 #pragma once
 

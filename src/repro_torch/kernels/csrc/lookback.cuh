@@ -1,7 +1,8 @@
 // The single-pass chained scan over the byte tiles of a chunk (Merrill and
 // Garland's decoupled look-back), for the kernels that read raw UTF-8 bytes.
-// decode_utf8.cu runs on it; fused_decode_vocab.cu and fused_decode_xform.cu
-// still run the three passes of decode_passes.cuh and can take it.
+// decode_tiles.cuh runs on it, for decode_utf8.cu and fused_decode_xform.cu;
+// fused_decode_vocab.cu still runs the three passes of decode_passes.cuh and
+// can take it.
 //
 // One launch covers the chunk. Each block draws a tile id from a counter in
 // launch order, so a block only ever waits on tiles whose blocks have

@@ -4,13 +4,17 @@
 //
 // Replaces src/repro/kernels/vocab/kernel.py::genvocab and ::apply_vocab.
 //
-// What bounds them on this card: memory traffic. genvocab reads 4 bytes of
-// modded value per (row, column) element plus the row's position, and does
-// one atomicMin (and one atomicAdd with counts) on a data-dependent slot of
-// the state; apply_vocab reads 4 bytes, gathers one table entry and writes
-// 4 bytes per element. The 27 x 5000 int32 state or table (540 KB) stays in
-// the 50 MB L2; the 27 x 1M one (108 MB) does not, so at 1M each atomic or
-// gather is a scattered 32-byte sector access in device memory.
+// What bounds them on this card: latency, then memory traffic. genvocab
+// reads 4 bytes of modded value per (row, column) element and a valid byte
+// per row, and does an atomicMin (and an atomicAdd with counts) on a
+// data-dependent slot of the state; apply_vocab reads 4 bytes, gathers one
+// table entry and writes 4 bytes per element. The 27 x 5000 int32 state or
+// table (540 KB) stays in the 50 MB L2; the 27 x 1M one (108 MB) does not,
+// so at 1M each atomic or gather is a scattered 32-byte sector access in
+// device memory. A chunk's bytes take well under a microsecond, so the
+// dependent round trips of one small launch, the atomics that hot slots
+// serialize in L2, and the count of valid rows (which rows_seen needs
+// whole) set genvocab's time.
 //
 // Design. The TPU kernels put one column per grid step: genvocab held the
 // column's whole state row in VMEM and updated it with a serial
@@ -19,38 +23,28 @@
 // row; tables past VMEM went to XLA. Here min is order-independent, so
 // atomicMin on the int32 state in device memory gives the reference's state
 // bit for bit at any vocab_range, with no serial loop and no memory tier.
-// Both kernels read the pipeline's row-major [rows, n_cols] layout directly,
-// one thread per element, so a warp's loads and stores coalesce; the TPU's
-// transposed [n_cols, rows] layout is not needed. The positions come from
-// the wrapper (vocab.positions: uint32 from rows_seen, saturating at NEVER,
-// NEVER for invalid rows). A row at NEVER is skipped: atomicMin with NEVER
-// changes nothing, and the reference adds no count for it. A value outside
-// [0, vocab_range) is skipped by genvocab (the reference's scatter drops
-// it) and gives 0 in apply_vocab; the pipeline's modulus never makes one.
+// Both kernels read the pipeline's row-major [rows, n_cols] layout
+// directly; the TPU's transposed [n_cols, rows] layout is not needed.
+//  - genvocab is all of GenVocab in one launch, with no work on the host or
+//    in other launches: the warp-per-column kernel of genvocab_warp.cuh,
+//    which fused_genvocab runs too. It computes each row's position from
+//    rows_seen on the device (vocab.positions: a row is live only if it is
+//    valid and below NEVER; valid need not be a prefix), merges equal slots
+//    of 32 rows in the warp, reads each slot before its atomicMin, adds a
+//    group's size to the count plane with one atomicAdd, and counts the
+//    valid rows into the row tally, whose last block writes the advanced
+//    rows_seen (vocab.advance_rows_seen) to a separate output. A value
+//    outside [0, vocab_range) is skipped (the reference's scatter drops
+//    it); the pipeline's modulus never makes one.
+//  - apply_vocab is one thread per element, so a warp's loads and stores
+//    coalesce; a value outside [0, vocab_range) gives 0.
 // The state and counts are updated in place; the reference donates them.
 
-#include "common.cuh"
+#include "genvocab_warp.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__global__ void genvocab_kernel(int* __restrict__ first_pos, int* __restrict__ counts,
-                                const int* __restrict__ modded, const int* __restrict__ pos,
-                                int rows, int n_cols, int vocab_range) {
-  const int total = rows * n_cols;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
-    const int r = i / n_cols;
-    const int p = pos[r];
-    if (static_cast<uint32_t>(p) >= repro::kNever) continue;  // invalid or saturated
-    const uint32_t v = static_cast<uint32_t>(modded[i]);
-    if (v >= static_cast<uint32_t>(vocab_range)) continue;
-    const int c = i - r * n_cols;
-    const int64_t slot = static_cast<int64_t>(c) * vocab_range + v;
-    atomicMin(first_pos + slot, p);
-    if (counts != nullptr) atomicAdd(counts + slot, 1);
-  }
-}
 
 __global__ void apply_vocab_kernel(const int* __restrict__ table, const int* __restrict__ modded,
                                    int* __restrict__ ids, int rows, int n_cols, int vocab_range) {
@@ -70,15 +64,26 @@ REPRO_EXPORT_ERROR_STRING
 
 // first_pos: int32 [n_cols, vocab_range], updated in place. counts: int32
 // [n_cols, vocab_range] updated in place, or null for no count plane.
-// modded: int32 [rows, n_cols] in [0, vocab_range). pos: int32 [rows].
-// 1 <= rows * n_cols < 2^31.
-extern "C" int genvocab(void* first_pos, void* counts, const void* modded, const void* pos,
-                        int rows, int n_cols, int vocab_range, void* stream) {
-  genvocab_kernel<<<repro::grid_for(static_cast<int64_t>(rows) * n_cols, kThreads), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(first_pos), static_cast<int*>(counts), static_cast<const int*>(modded),
-      static_cast<const int*>(pos), rows, n_cols, vocab_range);
-  return static_cast<int>(cudaGetLastError());
+// modded: int32 [rows, n_cols] in [0, vocab_range). valid: bool [rows].
+// rows_seen_in/out: int32 []. tally: uint64 [1], 0 before the launch and
+// after it; no other launch may use it meanwhile. 1 <= rows, 0 <= n_cols,
+// rows * n_cols < 2^31.
+extern "C" int genvocab(void* first_pos, void* counts, const void* modded, const void* valid,
+                        const void* rows_seen_in, void* rows_seen_out, void* tally, int rows,
+                        int n_cols, int vocab_range, void* stream) {
+  auto* fp = static_cast<int*>(first_pos);
+  auto* cn = static_cast<int*>(counts);
+  auto* vals = static_cast<const int*>(modded);
+  auto* ok = static_cast<const uint8_t*>(valid);
+  auto* seen_in = static_cast<const int*>(rows_seen_in);
+  auto* seen_out = static_cast<int*>(rows_seen_out);
+  auto* t = static_cast<unsigned long long*>(tally);
+  auto* st = static_cast<cudaStream_t>(stream);
+  return cn != nullptr
+             ? launch_genvocab_warp<RangeSlot, true>(fp, cn, vals, ok, seen_in, seen_out, t,
+                                                     rows, n_cols, vocab_range, st)
+             : launch_genvocab_warp<RangeSlot, false>(fp, nullptr, vals, ok, seen_in, seen_out,
+                                                      t, rows, n_cols, vocab_range, st);
 }
 
 // table: int32 [n_cols, vocab_range]. modded: int32 [rows, n_cols] in

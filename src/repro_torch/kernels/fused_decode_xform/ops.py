@@ -1,11 +1,15 @@
 """Public wrapper of the bytes-in loop-② kernel (csrc/fused_decode_xform.cu).
 
-One launch per chunk from raw UTF-8 bytes to the final features. The
-gather reads the table from device memory at any vocab range, and the
-outputs are written straight to their own tensors, so the reference's
-VMEM tiers and its ``[max_rows + 1, n_fields]`` staging table have no
-counterpart. Any buffer length is taken, with no padding to a tile
-multiple. A CPU buffer goes to the plain version. On the card, the
+One launch per chunk from raw UTF-8 bytes to the final features: decode's
+single-pass look-back scan (csrc/decode_tiles.cuh) with a writer of the
+transformed cell. The gather reads the table from device memory at any
+vocab range, and the outputs are written straight to their own tensors,
+so the reference's VMEM tiers and its ``[max_rows + 1, n_fields]``
+staging table have no counterpart. Any buffer length is taken, with no
+padding to a tile multiple. The look-back scratch and its epochs are
+decode's (``_scratch.scan_call``, one scratch per (device, stream)), so
+a CUDA graph capture raises, as it does for decode. A CPU
+buffer goes to the plain version. On the card, the
 degenerate cases take the reference wrapper's own route — the decode
 kernel, then the decoded-input loop-② kernel: no sparse or no dense
 column, or an empty buffer.
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.core import vocab as vocab_lib
 from repro_torch.kernels import _build
+from repro_torch.kernels._scratch import scan_call
 from repro_torch.kernels.decode_utf8 import ops as decode_ops
 from repro_torch.kernels.fused_decode_vocab.ref import hex_table
 from repro_torch.kernels.fused_decode_xform import ref
@@ -26,7 +31,7 @@ _P, _I = _build.PTR, _build.INT
 KERNEL = _build.Kernel(
     "fused_decode_xform",
     "fused_decode_transform",
-    [_P, _build.INT64, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    [_P, _build.INT64, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
 )
 
 
@@ -64,14 +69,14 @@ def fused_decode_transform(
     _build.check(vocab.table, "table", torch.int32, (n_sparse, vocab_range), dev)
     if max_rows * n_fields >= 2**31:
         raise ValueError(f"{max_rows} x {n_fields} cells; the kernel takes fewer than 2**31")
-    scratch = _build.decode_scratch("fused_decode_xform", n, max_rows * n_fields, dev)
+    scratch, epoch = scan_call(dev, n, "fused_decode_transform")
     label = torch.empty(max_rows, dtype=torch.int32, device=dev)
     dense = torch.empty((max_rows, n_dense), dtype=torch.float32, device=dev)
     ids = torch.empty((max_rows, n_sparse), dtype=torch.int32, device=dev)
     valid = torch.empty(max_rows, dtype=torch.bool, device=dev)
     p = _build.ptr
     KERNEL.launch(
-        dev, p(byte_buf), n, max_rows, n_fields, hex_start, vocab_range, p(scratch),
+        dev, p(byte_buf), n, max_rows, n_fields, hex_start, vocab_range, p(scratch.words), epoch,
         p(vocab.table), p(label), p(dense), p(ids), p(valid),
     )
     return label, dense, ids, valid

@@ -8,9 +8,9 @@ counterpart here. The kernel needs no row padding either: it masks the
 ragged edge itself.
 
 The kernel's blocks count the valid rows into a 64-bit tally in device
-memory, which the last block puts back to 0. The wrapper keeps one tally
-per (device, stream), zeroed when it is made (:func:`tally`): launches on
-one stream run one after another, and two streams never share one.
+memory, which the last block puts back to 0: one per (device, stream),
+zeroed when it is made (``_scratch.tally``), and shared with the per-op
+``genvocab`` (``vocab.ops``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core import vocab as vocab_lib
 from repro_torch.kernels import _build
+from repro_torch.kernels._scratch import tally
 from repro_torch.kernels.fused_vocab import ref
 
 _P, _I = _build.PTR, _build.INT
@@ -28,21 +29,6 @@ KERNEL = _build.Kernel(
 KERNEL_COUNTS = _build.Kernel(
     "fused_vocab", "fused_genvocab_counts", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I]
 )
-_tallies: dict[tuple[torch.device, int], torch.Tensor] = {}
-
-
-def tally(device: torch.device, stream: int) -> torch.Tensor:
-    """The kernel's int64 [1] row tally for launches on ``stream`` (a
-    stream handle) of ``device``: made zeroed at first use, then kept, and
-    left at 0 by every launch."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    key = (device, stream)
-    t = _tallies.get(key)
-    if t is None:
-        t = _tallies[key] = torch.zeros(1, dtype=torch.int64, device=device)
-    return t
 
 
 def fused_update(

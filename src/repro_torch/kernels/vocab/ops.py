@@ -9,6 +9,12 @@ reference's cutoff (ranges above ``VMEM_TIER_MAX`` = 512Ki go to its XLA
 oracle) has no counterpart. A CPU tensor goes to the plain version
 (``ref.py``); a CUDA tensor always launches the kernel, and a failed build
 or launch raises.
+
+On the card ``genvocab_update`` is that one launch and no other device
+work: the kernel computes the positions from ``rows_seen`` itself and
+counts the valid rows into the row tally it shares with
+``fused_vocab`` (``_scratch.tally``, one per (device, stream)),
+writing the advanced ``rows_seen`` to a new tensor.
 """
 
 from __future__ import annotations
@@ -17,10 +23,11 @@ import torch
 
 from repro_torch.core import vocab as vocab_lib
 from repro_torch.kernels import _build
+from repro_torch.kernels._scratch import tally
 from repro_torch.kernels.vocab import ref
 
 _P, _I = _build.PTR, _build.INT
-KERNEL_GENVOCAB = _build.Kernel("vocab", "genvocab", [_P, _P, _P, _P, _I, _I, _I])
+KERNEL_GENVOCAB = _build.Kernel("vocab", "genvocab", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I])
 KERNEL_APPLY = _build.Kernel("vocab", "apply_vocab", [_P, _P, _P, _I, _I, _I])
 
 
@@ -35,9 +42,9 @@ def genvocab_update(
     """Absorb one chunk of modded values into the first-occurrence state.
 
     modded int32 [rows, n_cols] in ``[0, vocab_range)``; valid bool [rows]
-    → the updated state, bit-identical to ``vocab.update``. Positions are
+    → the updated state, bit-identical to ``vocab.update``: positions are
     ``vocab.positions`` and the new ``rows_seen`` is
-    ``vocab.advance_rows_seen``, both computed on the device with no sync.
+    ``vocab.advance_rows_seen``.
 
     On the card it **updates ``state.first_pos`` and ``state.counts`` in
     place** (the reference donates them): thread the returned state
@@ -48,27 +55,32 @@ def genvocab_update(
     if n_state != n_cols:
         raise ValueError(f"modded has {n_cols} columns, the state {n_state}")
     vocab_lib.check_row_ceiling(state.rows_seen, rows)
-    pos = vocab_lib.positions(state.rows_seen, rows, valid)
-    rows_seen = vocab_lib.advance_rows_seen(state.rows_seen, valid.to(torch.int32).sum())
     if modded.device.type == "cpu":
+        pos = vocab_lib.positions(state.rows_seen, rows, valid)
+        rows_seen = vocab_lib.advance_rows_seen(state.rows_seen, valid.to(torch.int32).sum())
         vals_t = modded.t()
         counts = state.counts
         if counts is not None:
             counts = ref.genvocab_counts(counts, vals_t, pos)
         return vocab_lib.VocabState(ref.genvocab(state.first_pos, vals_t, pos), rows_seen, counts)
+    if rows == 0:
+        return state
     dev = modded.device
     _build.check(modded, "modded", torch.int32)
     _build.check(valid, "valid", torch.bool, (rows,), dev)
     _build.check(state.first_pos, "first_pos", torch.int32, device=dev)
+    _build.check(state.rows_seen, "rows_seen", torch.int32, (), dev)
     if state.counts is not None:
         _build.check(state.counts, "counts", torch.int32, state.first_pos.shape, dev)
     _check_elements(rows, n_cols)
-    if rows and n_cols:
-        p = _build.ptr
-        counts_ptr = p(state.counts) if state.counts is not None else None
-        KERNEL_GENVOCAB.launch(
-            dev, p(state.first_pos), counts_ptr, p(modded), p(pos), rows, n_cols, vocab_range
-        )
+    rows_seen = torch.empty((), dtype=torch.int32, device=dev)
+    p = _build.ptr
+    counts_ptr = p(state.counts) if state.counts is not None else None
+    KERNEL_GENVOCAB.launch(
+        dev, p(state.first_pos), counts_ptr, p(modded), p(valid), p(state.rows_seen),
+        p(rows_seen), p(tally(dev, torch.cuda.current_stream(dev).cuda_stream)), rows, n_cols,
+        vocab_range,
+    )
     return vocab_lib.VocabState(state.first_pos, rows_seen, state.counts)
 
 

@@ -13,7 +13,7 @@ chip_smoke.py runs the same comparisons at the main path's full shapes.
 import numpy as np
 import pytest
 import torch
-from chip_smoke import decode_edge_chunks, hostile_rows
+from chip_smoke import decode_edge_chunks, device_kernels, hostile_rows
 
 from repro_torch.configs import gemma_2b as tgemma
 from repro_torch.configs import piper_dlrm as tcfg
@@ -21,6 +21,7 @@ from repro_torch.core import pipeline as P
 from repro_torch.core import plan as tplan
 from repro_torch.core import vocab as tvocab
 from repro_torch.data import synth
+from repro_torch.kernels import _scratch
 from repro_torch.kernels.decode_utf8 import ops as dops
 from repro_torch.kernels.decode_utf8 import ref as dref
 from repro_torch.kernels.dense_xform import ops as dxops
@@ -135,8 +136,8 @@ def test_decode_streams_keep_their_own_scratch(cuda):
             outs.append([dops.decode(c, _CRITEO_HEX, **_decode_kw(256)) for c in chunks * 3])
     torch.cuda.synchronize()
     handles = [st.cuda_stream for st in streams]
-    sizes = [dops._scratch_ints(c.numel()) for c in chunks]
-    assert dops.scan_scratch(cuda, handles[0], max(sizes)) is not dops.scan_scratch(
+    sizes = [_scratch.scratch_ints(c.numel()) for c in chunks]
+    assert _scratch.scan_scratch(cuda, handles[0], max(sizes)) is not _scratch.scan_scratch(
         cuda, handles[1], max(sizes))
     for per_stream in outs:
         for c, got in zip(chunks * 3, per_stream):
@@ -198,8 +199,8 @@ def test_decode_epoch_wraps_without_a_stale_word(cuda):
     chunks = [torch.from_numpy(_EDGE_CHUNKS[n][0]).to(cuda)
               for n in ("more_delims_than_cells", "ends_on_8192", "long_field_over_two_tiles")]
     stream = torch.cuda.current_stream(cuda).cuda_stream
-    scratch = dops.scan_scratch(cuda, stream, max(dops._scratch_ints(c.numel()) for c in chunks))
-    scratch.epoch = dops.EPOCH_LIMIT - 3
+    scratch = _scratch.scan_scratch(cuda, stream, max(_scratch.scratch_ints(c.numel()) for c in chunks))
+    scratch.epoch = _scratch.EPOCH_LIMIT - 3
     for i in range(8):
         c = chunks[i % 3]
         _assert_decodes_as_plain(c, 37 if i % 3 == 0 else 256, calls=1)
@@ -276,7 +277,7 @@ def test_fused_genvocab_tiles_match_scatter_min(cuda, vocab_range, state, rows_s
     assert torch.equal(got.first_pos, want.first_pos)
     assert torch.equal(got.rows_seen, seen)
     # the tally is back at 0, so a second chunk counts from nothing
-    assert int(fvops.tally(cuda, torch.cuda.current_stream(cuda).cuda_stream)) == 0
+    assert int(_scratch.tally(cuda, torch.cuda.current_stream(cuda).cuda_stream)) == 0
 
 
 def test_fused_genvocab_streams_keep_their_own_tally(cuda):
@@ -294,7 +295,7 @@ def test_fused_genvocab_streams_keep_their_own_tally(cuda):
             states.append(s)
             outs.append(fvops.fused_update(s, sparse, valid))
     torch.cuda.synchronize()
-    assert fvops.tally(cuda, streams[0].cuda_stream) is not fvops.tally(
+    assert _scratch.tally(cuda, streams[0].cuda_stream) is not _scratch.tally(
         cuda, streams[1].cuda_stream)
     for i, out in enumerate(outs):
         want = tvocab.VocabState.init(26, 5000, device=cuda)
@@ -421,6 +422,128 @@ def test_fused_decode_xform_kernel_matches_plain(cuda, criteo_small, vocab_range
                     assert torch.equal(g, w), name
 
 
+def _table(n_sparse, vocab_range, seed, cuda):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    table = torch.randint(0, 2**31 - 1, (n_sparse, vocab_range), generator=gen,
+                          dtype=torch.int32, device=cuda)
+    return tvocab.Vocabulary(table=table, sizes=torch.zeros(n_sparse, dtype=torch.int32))
+
+
+def _assert_xform_as_plain(buf, max_rows, vocab, calls=2):
+    """``calls`` launches of the bytes-in loop-② kernel on ``buf``, each the
+    plain version's: label, ids and valid bit for bit, dense at rtol 1e-6.
+    Every call but the empty buffer's (decode's route) is one launch."""
+    kw = dict(n_fields=40, hex_start=14, max_rows=max_rows)
+    want = fdxref.fused_decode_transform(vocab, buf, **kw)
+    for _ in range(calls):
+        before = fdxops.KERNEL.launches
+        got = fdxops.fused_decode_transform(vocab, buf, **kw)
+        assert fdxops.KERNEL.launches == before + (buf.numel() > 0)
+        for name, g, w in zip(("label", "dense", "ids", "valid"), got, want):
+            if name == "dense":
+                torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+            else:
+                assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("vocab_range", [1, 97, 5000, 1_000_000])
+@pytest.mark.parametrize("name", list(_EDGE_CHUNKS))
+def test_fused_decode_xform_single_pass_edge_chunks(cuda, name, vocab_range):
+    """The one-launch bytes-in loop ② on each edge case of the tile scan
+    (data that ends on an 8 KiB tile boundary and one byte past it, n of 1
+    and 8193, a field longer than the 256-byte halo across the tile
+    boundary, a truncated row, all padding, more delimiters than cells),
+    twice: padding cells get the transform of a zero field (ids
+    table[c, 0])."""
+    arr, max_rows = _EDGE_CHUNKS[name]
+    vocab = _table(26, vocab_range, vocab_range, cuda)
+    _assert_xform_as_plain(torch.from_numpy(arr).to(cuda), max_rows, vocab)
+
+
+@pytest.mark.parametrize("vocab_range", [5000, 1_000_000])
+def test_fused_decode_xform_single_pass_larger_chunks(cuda, vocab_range):
+    """The synth 1 MiB chunk at max_rows 16384 and at 1000 (below its
+    rows), 2 and 4 MiB chunks, and the hostile chunks of 4136-byte fields
+    (longer than the halo, read by one thread from device memory)."""
+    vocab = _table(26, vocab_range, 3, cuda)
+    for size, max_rows in ((1 << 20, 1 << 14), (1 << 20, 1000), (2 << 20, 1 << 14),
+                           (4 << 20, 1 << 14)):
+        buf = torch.from_numpy(_synth_chunk(size)).to(cuda)
+        _assert_xform_as_plain(buf, max_rows, vocab)
+    for seed, n_rows, max_rows in ((0, 3000, 2048), (1, 3000, 4096)):
+        buf = _hostile(seed, n_rows, 7 * (seed == 0))
+        _assert_xform_as_plain(torch.from_numpy(buf).to(cuda), max_rows, vocab)
+
+
+def test_fused_decode_xform_shares_decode_scratch_across_an_epoch_wrap(cuda):
+    """Bytes-in loop ② and decode in turn on one stream, across the epoch's
+    wrap: they share the stream's look-back scratch, each call takes the
+    next epoch, and every result is the plain version's."""
+    vocab = _table(26, 97, 1, cuda)
+    chunks = [torch.from_numpy(_EDGE_CHUNKS[n][0]).to(cuda)
+              for n in ("more_delims_than_cells", "ends_on_8192", "field_over_halo_across_8192")]
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    _assert_xform_as_plain(chunks[0], 37, vocab, calls=1)  # built and warmed up first
+    scratch = _scratch.scan_scratch(cuda, stream, max(_scratch.scratch_ints(c.numel()) for c in chunks))
+    scratch.epoch = _scratch.EPOCH_LIMIT - 3
+    for i in range(8):
+        c, max_rows = chunks[i % 3], 37 if i % 3 == 0 else 256
+        if i % 2:
+            _assert_decodes_as_plain(c, max_rows, calls=1)
+        else:
+            _assert_xform_as_plain(c, max_rows, vocab, calls=1)
+    assert _scratch.scan_scratch(cuda, stream, 0) is scratch
+    assert scratch.epoch == 6  # two calls to the limit, then 1..6
+
+
+def test_fused_decode_xform_on_two_streams_at_once(cuda):
+    """1 and 4 MiB chunks through bytes-in loop ② and decode on two streams
+    at once, back to back: every launch ends and every result is the plain
+    version's."""
+    vocab = _table(26, 5000, 2, cuda)
+    chunks = [torch.from_numpy(_synth_chunk(size)).to(cuda) for size in (1 << 20, 4 << 20)]
+    kw = dict(n_fields=40, hex_start=14, max_rows=1 << 14)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = [[], []]
+    for _ in range(3):
+        for i, st in enumerate(streams):
+            st.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(st):
+                for c in chunks:
+                    outs[i].append(fdxops.fused_decode_transform(vocab, c, **kw))
+                    dops.decode(c, _CRITEO_HEX, **_decode_kw(1 << 14))
+    torch.cuda.synchronize()
+    wants = [fdxref.fused_decode_transform(vocab, c, **kw) for c in chunks]
+    for per_stream in outs:
+        for i, got in enumerate(per_stream):
+            for name, g, w in zip(("label", "dense", "ids", "valid"), got, wants[i % 2]):
+                if name == "dense":
+                    torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+                else:
+                    assert torch.equal(g, w), name
+
+
+def test_fused_decode_xform_refuses_graph_capture(cuda):
+    """A CUDA graph would replay one look-back epoch: capture raises."""
+    vocab = _table(26, 97, 4, cuda)
+    buf = torch.from_numpy(_EDGE_CHUNKS["truncated_row"][0]).to(cuda)
+    _assert_xform_as_plain(buf, 256, vocab, calls=1)  # built and warmed up first
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            fdxops.fused_decode_transform(vocab, buf, n_fields=40, hex_start=14, max_rows=256)
+
+
+def test_fused_decode_xform_is_one_kernel_a_call(cuda):
+    """The profiler sees one device kernel per call of bytes-in loop ② on
+    the synth 1 MiB chunk, and nothing else."""
+    vocab = _table(26, 5000, 5, cuda)
+    buf = torch.from_numpy(_synth_chunk(1 << 20)).to(cuda)
+    found = device_kernels(torch, lambda: fdxops.fused_decode_transform(
+        vocab, buf, n_fields=40, hex_start=14, max_rows=1 << 14))
+    assert list(found.values()) == [5], found
+
+
 @pytest.mark.parametrize("n_dense,n_sparse", [(0, 3), (3, 0), (2, 3)])
 def test_fused_decode_degenerate_routes_match_plain(cuda, n_dense, n_sparse):
     """No dense or no sparse column, and an empty buffer: the wrappers'
@@ -505,6 +628,127 @@ def test_per_op_genvocab_kernel_matches_plain(cuda, vocab_range, track_counts, r
     assert torch.equal(got.rows_seen, tvocab.update(want, modded, valid).rows_seen)
     if track_counts:
         assert torch.equal(got.counts, vref.genvocab_counts(want.counts, modded.t(), pos))
+
+
+def _plain_genvocab(state, modded, valid):
+    """The plain GenVocab of one chunk that may hold values outside
+    [0, V): vref.genvocab and vref.genvocab_counts on the chunk with such
+    cells dropped (given the min identity and no count), as the kernel and
+    the reference's scatter drop them."""
+    rows, n_cols = modded.shape
+    vocab_range = state.first_pos.shape[1]
+    pos = tvocab.positions(state.rows_seen, rows, valid)
+    keep = (modded >= 0) & (modded < vocab_range)
+    idx = torch.where(keep, modded, 0).t().to(torch.int64)
+    src = torch.where(keep, pos[:, None], tvocab.NEVER).t()
+    if bool(keep.all()):
+        first = vref.genvocab(state.first_pos, modded.t(), pos)
+    else:
+        first = state.first_pos.scatter_reduce(1, idx, src, reduce="amin")
+    counts = None
+    if state.counts is not None:
+        counts = (vref.genvocab_counts(state.counts, modded.t(), pos) if bool(keep.all())
+                  else state.counts.scatter_add(1, idx, (src < tvocab.NEVER).to(torch.int32)))
+    seen = tvocab.advance_rows_seen(state.rows_seen, valid.to(torch.int32).sum())
+    return tvocab.VocabState(first, seen, counts)
+
+
+_GENVOCAB_CASES = {  # name → (rows, n_cols, what)
+    "rows_1": (1, 27, "random"), "rows_31": (31, 27, "random"), "rows_33": (33, 27, "random"),
+    "rows_300": (300, 27, "random"), "all_invalid": (300, 27, "all_invalid"),
+    "cols_40": (300, 40, "random"), "values_at_or_past_V": (300, 27, "out_of_range"),
+    "one_warp_equal": (64, 27, "equal"),
+}
+
+
+@pytest.mark.parametrize("vocab_range", [97, 5000, 1_000_000])
+@pytest.mark.parametrize("track_counts", [False, True], ids=["plain", "counts"])
+@pytest.mark.parametrize("rows_seen", [0, tvocab.NEVER - 3], ids=["start", "ceiling"])
+@pytest.mark.parametrize("case", list(_GENVOCAB_CASES))
+def test_per_op_genvocab_one_launch_edge_cases(cuda, vocab_range, track_counts, rows_seen, case):
+    """The one-launch genvocab against its plain version, bit for bit on
+    first_pos, counts and rows_seen: a random valid mask (no prefix) at 1,
+    31, 33 and 300 rows, no valid row, 40 columns (more than a block's 32
+    warps), values at or past V (dropped), and 32 equal values in one warp
+    (the count rises by each live row of the 32). One launch a call."""
+    rows, n_cols, what = _GENVOCAB_CASES[case]
+    rng = np.random.default_rng(vocab_range + rows + n_cols)
+    modded = _modded(rng, rows, n_cols, vocab_range, cuda)
+    valid = torch.from_numpy(rng.random(rows) < 0.7).to(cuda)
+    if what == "all_invalid":
+        valid.zero_()
+    elif what == "out_of_range":
+        modded[rng.random((rows, n_cols)) < 0.2] = vocab_range + 3
+        modded[0, :3] = torch.tensor([vocab_range, 2**31 - 1, -1], dtype=torch.int32)
+    elif what == "equal":
+        modded[:32, 5] = vocab_range // 2
+        valid[:32] = True
+    history = torch.from_numpy(np.where(
+        rng.random((n_cols, vocab_range)) < 0.2, rng.integers(0, 50, (n_cols, vocab_range)),
+        tvocab.NEVER).astype(np.int32)).to(cuda)
+
+    def fresh():
+        counts = torch.ones_like(history) if track_counts else None
+        return tvocab.VocabState(
+            history.clone(), torch.tensor(rows_seen, dtype=torch.int32, device=cuda), counts)
+
+    before = vops.KERNEL_GENVOCAB.launches
+    got = vops.genvocab_update(fresh(), modded, valid)
+    assert vops.KERNEL_GENVOCAB.launches == before + 1
+    want = _plain_genvocab(fresh(), modded, valid)
+    assert torch.equal(got.first_pos, want.first_pos)
+    assert torch.equal(got.rows_seen, want.rows_seen)
+    if track_counts:
+        assert torch.equal(got.counts, want.counts)
+        if what == "equal":  # counts started at 1
+            pos = tvocab.positions(torch.tensor(rows_seen, device=cuda), rows, valid)
+            hits = int(((modded[:, 5] == vocab_range // 2) & (pos < tvocab.NEVER)).sum())
+            assert int(got.counts[5, vocab_range // 2]) == 1 + hits
+            assert hits >= (32 if rows_seen == 0 else 3)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert int(_scratch.tally(cuda, stream)) == 0  # left at 0 for the next launch
+
+
+def test_per_op_genvocab_streams_keep_their_own_tally(cuda):
+    """Chunks on two streams at once: each stream's launches count into its
+    own tally (the one fused_genvocab uses on that stream), and both
+    states end as the plain version's."""
+    rng = np.random.default_rng(21)
+    modded = _modded(rng, 16384, 27, 5000, cuda)
+    valid = torch.from_numpy(rng.random(16384) < 0.9).to(cuda)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = []
+    for i, st in enumerate(streams):
+        st.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(st):
+            s = tvocab.VocabState.init(27, 5000, track_counts=True, device=cuda)
+            s.rows_seen.fill_(i * 100)
+            for _ in range(3):
+                s = vops.genvocab_update(s, modded, valid)
+            outs.append(s)
+    torch.cuda.synchronize()
+    assert _scratch.tally(cuda, streams[0].cuda_stream) is not _scratch.tally(
+        cuda, streams[1].cuda_stream)
+    for i, out in enumerate(outs):
+        want = tvocab.VocabState.init(27, 5000, track_counts=True, device=cuda)
+        want.rows_seen.fill_(i * 100)
+        for _ in range(3):
+            want = _plain_genvocab(want, modded, valid)
+        assert torch.equal(out.first_pos, want.first_pos)
+        assert torch.equal(out.counts, want.counts)
+        assert torch.equal(out.rows_seen, want.rows_seen)
+
+
+@pytest.mark.parametrize("track_counts", [False, True], ids=["plain", "counts"])
+def test_per_op_genvocab_is_one_kernel_a_call(cuda, track_counts):
+    """The profiler sees one device kernel per genvocab_update call on a
+    [16384, 27] chunk, and no other device work."""
+    rng = np.random.default_rng(22)
+    modded = _modded(rng, 16384, 27, 5000, cuda)
+    valid = torch.from_numpy(np.arange(16384) < 3745).to(cuda)
+    state = tvocab.VocabState.init(27, 5000, track_counts=track_counts, device=cuda)
+    found = device_kernels(torch, lambda: vops.genvocab_update(state, modded, valid))
+    assert list(found.values()) == [5], found
 
 
 @pytest.mark.parametrize("vocab_range", [97, 5000, 1_000_000])

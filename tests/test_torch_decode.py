@@ -11,6 +11,7 @@ import torch
 
 from repro.kernels.decode_utf8 import ops as jdops
 from repro.kernels.decode_utf8 import ref as jdref
+from repro_torch.kernels import _scratch
 from repro_torch.kernels.decode_utf8 import ops as tdops
 from repro_torch.kernels.decode_utf8 import ref as tdref
 from tests.test_decode_fuzz import _hostile_chunk
@@ -89,12 +90,12 @@ def test_ref_handles_permuted_layout():
 
 # -- the kernel's look-back scratch (host side; the card tests run it) ----- #
 def test_scan_scratch_epochs_count_from_one_and_wrap_with_a_zeroing():
-    s = tdops.ScanScratch(16, torch.device("cpu"))
+    s = _scratch.ScanScratch(16, torch.device("cpu"))
     assert s.words.dtype == torch.int32 and not s.words.any()
     assert [s.next_epoch() for _ in range(3)] == [1, 2, 3]
     s.words.fill_(7)  # status words of earlier calls
-    s.epoch = tdops.EPOCH_LIMIT - 2
-    assert s.next_epoch() == tdops.EPOCH_LIMIT - 1
+    s.epoch = _scratch.EPOCH_LIMIT - 2
+    assert s.next_epoch() == _scratch.EPOCH_LIMIT - 1
     assert s.words.eq(7).all()
     assert s.next_epoch() == 1  # the epochs ran out: the words are zeroed
     assert not s.words.any()
@@ -103,12 +104,12 @@ def test_scan_scratch_epochs_count_from_one_and_wrap_with_a_zeroing():
 
 def test_scan_scratch_is_kept_per_stream_and_grows_zeroed():
     dev = torch.device("cpu")
-    a = tdops.scan_scratch(dev, 111, 40)
+    a = _scratch.scan_scratch(dev, 111, 40)
     a.next_epoch()
-    assert tdops.scan_scratch(dev, 111, 40) is a  # kept, epoch and all
-    assert tdops.scan_scratch(dev, 111, 12) is a
-    assert tdops.scan_scratch(dev, 222, 40) is not a  # another stream
+    assert _scratch.scan_scratch(dev, 111, 40) is a  # kept, epoch and all
+    assert _scratch.scan_scratch(dev, 111, 12) is a
+    assert _scratch.scan_scratch(dev, 222, 40) is not a  # another stream
     a.words.fill_(3)
-    b = tdops.scan_scratch(dev, 111, 41)  # a larger chunk: new words, zeroed
+    b = _scratch.scan_scratch(dev, 111, 41)  # a larger chunk: new words, zeroed
     assert b is not a and b.words.numel() == 41 and not b.words.any() and b.epoch == 0
-    assert tdops.scan_scratch(dev, 111, 41) is b
+    assert _scratch.scan_scratch(dev, 111, 41) is b

@@ -35,8 +35,9 @@ from tests.test_decode_fuzz import _hostile_chunk
 
 NEVER = tvocab.NEVER
 # The Pallas kernels' byte tile in these tests, and the one length every
-# buffer is padded to, so that each interpret-mode kernel compiles once.
-BLOCK, SIZE = 256, 4096
+# buffer is padded to, so that each interpret-mode kernel compiles once:
+# longer than the card kernels' 8 KiB tile, so a buffer can cross it.
+BLOCK, SIZE = 256, 12288
 DECODE_GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "decode_fused_small.npz")
 
 # The hostile corpus of tests/test_decode_fuzz.py, one chunk per class.
@@ -193,6 +194,28 @@ def test_overflow_rows(n_rows):
     got = tfdv.fused_decode_update(tvocab.VocabState.init(3, 53, device="cpu"),
                                    torch.from_numpy(buf), n_fields=6, hex_start=3, max_rows=32)
     assert int(got.rows_seen) == 32
+
+
+def test_long_fields_across_the_card_tile():
+    """A buffer of more than 8192 bytes (the card kernels' tile) whose rows
+    each hold a hex field longer than 256 bytes (the card kernels' halo),
+    so that such fields cross the tile boundary; the last row truncated and
+    more rows than max_rows. Both loops against the interpret-mode kernels."""
+    rng = np.random.default_rng(20)
+    rows = []
+    for r in range(34):
+        long_hex = "".join(rng.choice(list("0123456789abcdef"), size=int(rng.integers(257, 360))))
+        rows.append(f"{r % 2}\t{rng.integers(-9, 999)}\t\t{long_hex}\t{rng.integers(0, 2**32):x}"
+                    f"\t{'-' if r % 5 == 0 else ''}7")
+    raw = ("\n".join(rows) + "\n").encode()[:-3]
+    assert 8192 < len(raw) <= SIZE
+    # the field that holds byte 8192 is longer than 256 bytes
+    begin = max(raw.rfind(b"\t", 0, 8192), raw.rfind(b"\n", 0, 8192))
+    end = min(i for i in (raw.find(b"\t", 8192), raw.find(b"\n", 8192)) if i >= 0)
+    assert end - begin - 1 > 256
+    buf = _pad(raw)
+    _check_vocab(buf, 2, 3, 32, 53, 7, pallas=True)
+    _check_xform(buf, 2, 3, 32, 53, pallas=True)
 
 
 @pytest.mark.parametrize("n_dense,n_sparse", [(0, 3), (3, 0)], ids=["n_dense=0", "n_sparse=0"])

@@ -15,6 +15,7 @@ from repro.core import vocab as jvocab
 from repro.kernels.fused_vocab import ops as jfv
 from repro_torch.core import ops as tops
 from repro_torch.core import vocab as tvocab
+from repro_torch.kernels import _scratch
 from repro_torch.kernels.fused_vocab import ops as tfv
 
 
@@ -80,7 +81,7 @@ def test_rejects_column_mismatch():
 def test_tally_is_kept_per_device_and_stream():
     """The kernel's row tally: int64 [1], zero when made, one per (device,
     stream), the same tensor on every later call for that pair."""
-    a = tfv.tally("cpu", 101)
+    a = _scratch.tally("cpu", 101)
     assert a.dtype == torch.int64 and a.shape == (1,) and int(a) == 0
-    assert tfv.tally(torch.device("cpu"), 101) is a
-    assert tfv.tally("cpu", 102) is not a
+    assert _scratch.tally(torch.device("cpu"), 101) is a
+    assert _scratch.tally("cpu", 102) is not a

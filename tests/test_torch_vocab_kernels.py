@@ -2,8 +2,9 @@
 (repro_torch.kernels.vocab, repro_torch.kernels.dense_xform) against the
 JAX package's refs and its Pallas kernels in interpret mode, on the same
 numpy inputs: GenVocab with and without the count plane (duplicate keys
-within a chunk, invalid rows, ``rows_seen`` at 0 and at ``NEVER - 3``,
-where positions saturate), ApplyVocab, and the dense transform on int32
+within a chunk, invalid rows, a valid mask that is no prefix, 40 columns,
+a chunk with no valid row, ``rows_seen`` at 0 and at ``NEVER - 3``, where
+positions saturate), ApplyVocab, and the dense transform on int32
 extremes and f32 input. On the CPU each wrapper takes its plain version;
 the CUDA kernels are held to them in tests/test_torch_cuda.py and on the
 card by chip_smoke.py."""
@@ -81,10 +82,10 @@ def test_apply_vocab_ref_matches_reference():
         ids.numpy(), np.asarray(jv_ops.apply_vocab_vmem(jnp.asarray(table), jnp.asarray(modded))))
 
 
-def _states(track_counts, rows_seen):
-    j = jvocab.VocabState.init(N_COLS, V, track_counts=track_counts)
+def _states(track_counts, rows_seen, n_cols=N_COLS):
+    j = jvocab.VocabState.init(n_cols, V, track_counts=track_counts)
     j = jvocab.VocabState(j.first_pos, jnp.int32(rows_seen), j.counts)
-    t = tvocab.VocabState.init(N_COLS, V, track_counts=track_counts, device="cpu")
+    t = tvocab.VocabState.init(n_cols, V, track_counts=track_counts, device="cpu")
     t.rows_seen.fill_(rows_seen)
     return j, t
 
@@ -103,6 +104,36 @@ def test_genvocab_update_matches_pallas_route(track_counts, rows_seen):
         assert int(t.rows_seen) == int(j.rows_seen)
         if track_counts:
             np.testing.assert_array_equal(t.counts.numpy(), np.asarray(j.counts))
+
+
+@pytest.mark.parametrize("chunk", ["sparse_valid", "all_invalid"])
+@pytest.mark.parametrize("track_counts", [False, True], ids=["plain", "counts"])
+def test_genvocab_update_edge_chunks_match_pallas_route(chunk, track_counts):
+    """40 columns (more than the card kernel's 32 warps a block), after an
+    ordinary chunk: one whose valid rows are scattered (no prefix: every
+    third row and a random third), or one with no valid row, which must
+    leave the state and rows_seen as they were. Against the reference's
+    genvocab_update (the Pallas kernel in interpret mode)."""
+    n_cols = 40
+    j, t = _states(track_counts, 7, n_cols)
+    before = None
+    for seed, kind in ((15, "ordinary"), (16, chunk)):
+        modded, valid = _modded(seed, n_cols=n_cols)
+        if kind == "sparse_valid":
+            valid = (np.arange(ROWS) % 3 == 0) | (np.random.default_rng(seed).random(ROWS) < 0.3)
+            assert not valid.all() and valid.any()
+        elif kind == "all_invalid":
+            valid = np.zeros(ROWS, bool)
+        j = jv_ops.genvocab_update(j, jnp.asarray(modded), jnp.asarray(valid))
+        t = tv_ops.genvocab_update(t, torch.from_numpy(modded), torch.from_numpy(valid))
+        np.testing.assert_array_equal(t.first_pos.numpy(), np.asarray(j.first_pos))
+        assert int(t.rows_seen) == int(j.rows_seen)
+        if track_counts:
+            np.testing.assert_array_equal(t.counts.numpy(), np.asarray(j.counts))
+        if kind == "all_invalid":
+            assert int(t.rows_seen) == int(before.rows_seen)
+            assert torch.equal(t.first_pos, before.first_pos)
+        before = t
 
 
 def test_saturation_at_the_ceiling():

@@ -24,9 +24,10 @@ object a line:
    column there: its table is 8 GiB), with hashes at int32 min and max
    and -1, a row count that is no multiple of 4, and no dense columns;
 3. ``time``: at the main path's shapes, each kernel's device time per
-   call and its launches per call from one short torch.profiler pass (by
-   kernel name, so decode's stages show apart) and its CUDA-event time per
-   call, back to back after a warm-up. ``decode_scan``: the utf8 feed's
+   call from one short torch.profiler pass (by kernel name, so decode's
+   stages show apart), its device kernels per call by name
+   (``chip_smoke.device_kernels``) and its CUDA-event time per call, back
+   to back after a warm-up. ``decode_scan``: the utf8 feed's
    first 1 MiB chunk (seed 0, 2^18 rows) at max_rows 16384, its first 2
    and 4 MiB chunks at the same max_rows, and the hostile chunks.
    ``fused_transform`` and ``fused_mod_dense``: sparse [16384, 26] and
@@ -34,7 +35,9 @@ object a line:
    finalized from chunks 1 and 2 at V = 5000 and 10^6, with
    ``torch.gather`` on the modded indices beside it. The bytes-in kernels
    ``fused_decode_genvocab`` and ``fused_decode_transform`` on the same
-   chunk. And an empty kernel's device time (the launch floor).
+   chunk, and ``fused_decode_transform`` on the 2 and 4 MiB chunks and the
+   first two hostile chunks too. And an empty kernel's device time (the
+   launch floor).
 
 The last line holds every record, with the card's name and power limit
 (nvidia-smi). It exits non-zero if a check failed or there is no card.
@@ -118,6 +121,33 @@ class DecodeBench(Bench):
                             "ok": same and exact})
         return records
 
+    # -- fused_decode_transform ----------------------------------------- #
+    def check_decode_xform(self, fdxops, fdxref, vocab_lib, chunks) -> list:
+        np, torch = self.np, self.torch
+        import chip_smoke
+
+        cases = [("synth_1MiB", chunks[0], MAX_ROWS), ("synth_1MiB_1000_rows", chunks[0], 1000)]
+        cases += self.sized + self.hostile() + chip_smoke.decode_edge_chunks(np)
+        gen = torch.Generator(self.dev).manual_seed(5)
+        table = torch.randint(0, 2**31 - 1, (N_SPARSE, 5000), generator=gen, dtype=torch.int32,
+                              device=self.dev)
+        vocab = vocab_lib.Vocabulary(table=table, sizes=torch.zeros(N_SPARSE, dtype=torch.int32))
+        fkw = dict(n_fields=N_FIELDS, hex_start=1 + N_DENSE)
+        records = []
+        for name, arr, max_rows in cases:
+            b = torch.from_numpy(arr).to(self.dev)
+            got = fdxops.fused_decode_transform(vocab, b, max_rows=max_rows, **fkw)
+            again = fdxops.fused_decode_transform(vocab, b, max_rows=max_rows, **fkw)
+            want = fdxref.fused_decode_transform(vocab, b, max_rows=max_rows, **fkw)
+            self.sync()
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            exact = all(torch.equal(got[i], want[i]) for i in (0, 2, 3)) and bool(
+                torch.allclose(got[1], want[1], rtol=1e-6, atol=0))
+            records.append({"kernel": "fused_decode_transform", "chunk": name,
+                            "bytes": int(arr.size), "max_rows": max_rows, "deterministic": same,
+                            "exact": exact, "ok": same and exact})
+        return records
+
     # -- fused_transform ------------------------------------------------ #
     def check_xform(self, fxops, fxref, vocab_lib) -> list:
         np, torch = self.np, self.torch
@@ -160,8 +190,9 @@ class DecodeBench(Bench):
         rec = {"event_ms": self.event_ms(fn, reps)}
         dev = self.device_ms([fn] * reps)
         if dev is not None:
-            rec.update(device_ms=dev["total"], stages=dev["by_name"],
-                       launches_per_call=sum(v["count"] for v in dev["by_name"].values()) / reps)
+            per_call = self.kernels_per_call(fn)
+            rec.update(device_ms=dev["total"], stages=dev["by_name"], kernels_per_call=per_call,
+                       launches_per_call=sum(per_call.values()))
         if library is not None:
             lib = self.device_ms([library] * reps)
             rec["library_event_ms"] = self.event_ms(library, reps)
@@ -231,6 +262,12 @@ class DecodeBench(Bench):
                 lambda: fdvops.fused_decode_update(st, buf, max_rows=MAX_ROWS, **fkw)))
             add(f"fused_decode_transform@{tag}", lambda: self.timed(
                 lambda: fdxops.fused_decode_transform(vocab, buf, max_rows=MAX_ROWS, **fkw)))
+            for size, arr, max_rows in self.sized + self.hostile()[:2]:
+                b = torch.from_numpy(arr).to(dev)
+                add(f"fused_decode_transform@{tag}/{size}", lambda: {
+                    "shape": f"{b.numel()} B chunk, max_rows {max_rows}",
+                    **self.timed(lambda: fdxops.fused_decode_transform(
+                        vocab, b, max_rows=max_rows, **fkw))})
         return times
 
 
@@ -256,7 +293,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_utf8 import ops as dops, ref as dref
     from repro_torch.kernels.fused_decode_vocab import ops as fdvops
-    from repro_torch.kernels.fused_decode_xform import ops as fdxops
+    from repro_torch.kernels.fused_decode_xform import ops as fdxops, ref as fdxref
     from repro_torch.kernels.fused_xform import ops as fxops, ref as fxref
 
     dev = torch.device("cpu" if args.rehearse else "cuda")
@@ -278,8 +315,9 @@ def main(argv=None) -> int:
     failed = []
     records["checks"] = []
     if not args.time_only:
-        for rec in bench.check_decode(dops, dref, chunks) + bench.check_xform(fxops, fxref,
-                                                                               vocab_lib):
+        for rec in (bench.check_decode(dops, dref, chunks)
+                    + bench.check_decode_xform(fdxops, fdxref, vocab_lib, chunks)
+                    + bench.check_xform(fxops, fxref, vocab_lib)):
             records["checks"].append(rec)
             if not rec["ok"]:
                 failed.append(rec)

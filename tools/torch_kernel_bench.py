@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The embedding gradient and loop ①'s fused GenVocab alone on one NVIDIA GPU.
+"""The embedding gradient and loop ①'s GenVocab kernels alone on one NVIDIA GPU.
 
     python3 tools/torch_kernel_bench.py [--src SRC] [--out results.json] [--label NAME]
+                                        [--only genvocab,fused_genvocab,embedding_gather_backward]
     python3 tools/torch_kernel_bench.py --rehearse     # plumbing only, on the CPU
 
 ``--src`` is a ``src/`` directory that holds a ``repro_torch`` package
@@ -20,7 +21,11 @@ object a line:
    ``fused_genvocab`` bit for bit on ``first_pos`` and ``rows_seen``: a
    fresh and a filled state, a Zipf chunk where one hash fills a quarter
    of the rows, an all-invalid chunk, a row count that is no multiple of
-   32, and ``rows_seen`` at NEVER - 3;
+   32, and ``rows_seen`` at NEVER - 3; the per-op ``genvocab_update``
+   bit for bit against ``vocab.update`` (``first_pos``, ``counts``,
+   ``rows_seen``) on the crossed plan's 27 modded columns: the utf8
+   chunk's valid prefix, a valid mask that is no prefix, no valid row, 40
+   columns, ``rows_seen`` at 0 and NEVER - 3, with and without counts;
 3. ``time``: at the main path's shapes, each kernel's device time per
    call from torch.profiler (kernels and memsets by name, so the
    gradient's stages show apart) and its CUDA-event time per call, back
@@ -30,10 +35,15 @@ object a line:
    ``fused_genvocab``: sparse [16384, 26] with 3745 live rows (a 1 MiB
    utf8 chunk) or 16384 (a binary chunk), into a state filled by two
    earlier chunks ("warm") or all NEVER ("fresh", a new state for each
-   call), with item 8's ``genvocab`` on the same chunk's modded values
-   and positions, the host µs to issue one wrapper call, and an empty
-   kernel's device time (the launch floor, where the tree has one).
-   V = 5000 and 10^6.
+   call), the host µs to issue one wrapper call, and an empty kernel's
+   device time (the launch floor, where the tree has one). The per-op
+   ``genvocab_update``, the whole call, on the same chunk's hashes modded
+   with a 27th column crossed from the first two (the crossed plan's
+   shape): device ms per call, the device kernels per call by name
+   (``chip_smoke.device_kernels``), event ms, host µs per call, and
+   ``scatter_reduce_(amin)`` on the transposed indices and positions made
+   beforehand beside it; where the tree's ``genvocab`` kernel still takes
+   positions (an older tree), the kernel alone too. V = 5000 and 10^6.
 
 The last line holds every record, with the card's name and power limit
 (nvidia-smi). It exits non-zero if a check failed or there is no card.
@@ -157,6 +167,17 @@ class Bench:
             if by_name:
                 break
         return {"by_name": by_name, "total": sum(v["ms"] for v in by_name.values())}
+
+    def kernels_per_call(self, fn, calls: int = 5) -> dict | None:
+        """Device kernels and copies of one call of ``fn`` by name
+        (``chip_smoke.device_kernels`` over ``calls`` calls, over
+        ``calls``); None in a rehearsal."""
+        if self.rehearse:
+            return None
+        from chip_smoke import device_kernels
+
+        return {name[:60]: n / calls
+                for name, n in device_kernels(self.torch, fn, calls).items()}
 
     # -- data ----------------------------------------------------------- #
     def chunk(self, seed: int):
@@ -319,7 +340,7 @@ class Bench:
                                         "state": state_name, "rows_seen": rows_seen, "ok": ok})
         return records
 
-    def time_genvocab(self, fvops, vops, vocab_lib, vocab, live) -> dict:
+    def time_genvocab(self, fvops, vocab_lib, vocab, live) -> dict:
         torch, np, dev = self.torch, self.np, self.dev
         sparse_np = self.chunk(11)
         valid_np = np.arange(CHUNK_ROWS) < live
@@ -336,16 +357,6 @@ class Bench:
         for s in fresh:
             s.rows_seen.copy_(warm.rows_seen)
         modded = (sparse.to(torch.int64) & 0xFFFFFFFF).remainder(vocab).to(torch.int32)
-        pos = vocab_lib.positions(warm.rows_seen, CHUNK_ROWS, valid)
-        p = None if self.rehearse else __import__("ctypes").c_void_p
-
-        def item8():
-            if self.rehearse:
-                return vops.genvocab_update(warm, modded, valid)
-            vops.KERNEL_GENVOCAB.launch(dev, p(warm.first_pos.data_ptr()), None,
-                                        p(modded.data_ptr()), p(pos.data_ptr()), CHUNK_ROWS,
-                                        N_COLS, vocab)
-
         def warm_call():
             return fvops.fused_update(warm, sparse, valid)
 
@@ -359,10 +370,107 @@ class Bench:
         warm_dev = self.device_ms([warm_call] * reps)
         fresh_dev = self.device_ms([lambda s=s: fvops.fused_update(s, sparse, valid)
                                     for s in fresh])
-        item8_dev = self.device_ms([item8] * reps)
         if not self.rehearse:
-            rec.update(warm_ms=warm_dev["total"], fresh_ms=fresh_dev["total"],
-                       item8_genvocab_ms=item8_dev["total"])
+            rec.update(warm_ms=warm_dev["total"], fresh_ms=fresh_dev["total"])
+        return rec
+
+    # -- the per-op genvocab -------------------------------------------- #
+    def crossed_modded(self, sparse, vocab):
+        """The crossed plan's 27 modded columns of a [rows, 26] hash chunk:
+        the 26, then the cross of columns 0 and 1."""
+        from repro_torch.core import ops
+
+        torch = self.torch
+        crossed = torch.cat([sparse, ops.hash_cross(sparse[:, 0], sparse[:, 1])[:, None]], dim=1)
+        return ops.positive_modulus(crossed, vocab)
+
+    def check_per_op_genvocab(self, vops, vocab_lib) -> list:
+        torch, np, dev = self.torch, self.np, self.dev
+        records = []
+        sparse = torch.from_numpy(self.chunk(11)).to(dev)
+        rng = np.random.default_rng(8)
+        for vocab in (97, 5000, 1_000_000) if not self.rehearse else (97, 5000, 20000):
+            modded = self.crossed_modded(sparse, vocab)
+            modded40 = torch.cat([modded, modded[:, :13].flip(0)], dim=1).contiguous()
+            history = rng.integers(0, 3 * CHUNK_ROWS, (40, vocab)).astype(np.int32)
+            history[rng.random(history.shape) < 0.5] = NEVER
+            history = torch.from_numpy(history).to(dev)
+            counts = torch.from_numpy(rng.integers(0, 9, (40, vocab)).astype(np.int32)).to(dev)
+            prefix = torch.arange(CHUNK_ROWS, device=dev) < UTF8_LIVE
+            scattered = torch.from_numpy(rng.random(CHUNK_ROWS) < 0.4).to(dev)
+            for name, m, v in (("utf8_prefix", modded, prefix), ("scattered", modded, scattered),
+                               ("no_valid_row", modded, torch.zeros_like(prefix)),
+                               ("40_columns", modded40, scattered)):
+                n_cols = m.shape[1]
+                for track in (False, True):
+                    for rows_seen in (0,) + (() if self.rehearse else (NEVER - 3,)):
+                        def state():
+                            return vocab_lib.VocabState(
+                                history[:n_cols].clone(),
+                                torch.tensor(rows_seen, dtype=torch.int32, device=dev),
+                                counts[:n_cols].clone() if track else None)
+
+                        got = vops.genvocab_update(state(), m, v)
+                        want = vocab_lib.update(state(), m, v)
+                        self.sync()
+                        ok = all(torch.equal(getattr(got, f), getattr(want, f))
+                                 for f in ("first_pos", "rows_seen")
+                                 ) and (not track or torch.equal(got.counts, want.counts))
+                        records.append({"kernel": "genvocab", "V": vocab, "chunk": name,
+                                        "counts": track, "rows_seen": rows_seen, "ok": bool(ok)})
+        return records
+
+    def time_per_op_genvocab(self, vops, vocab_lib, vocab, live) -> dict:
+        """genvocab_update, the whole call, on the crossed plan's [16384, 27]
+        modded chunk with ``live`` valid rows, into a state filled by two
+        earlier chunks."""
+        torch, np, dev = self.torch, self.np, self.dev
+        valid = torch.arange(CHUNK_ROWS, device=dev) < live
+        modded = self.crossed_modded(torch.from_numpy(self.chunk(11)).to(dev), vocab)
+        n_cols = modded.shape[1]
+        warm = vocab_lib.VocabState.init(n_cols, vocab, device=dev)
+        for seed in (12, 13):
+            prev = self.crossed_modded(torch.from_numpy(self.chunk(seed)).to(dev), vocab)
+            warm = vops.genvocab_update(warm, prev, torch.ones(CHUNK_ROWS, dtype=torch.bool,
+                                                               device=dev))
+        pos = vocab_lib.positions(warm.rows_seen, CHUNK_ROWS, valid)
+        idx_t = modded.t().to(torch.int64).contiguous()
+        src = pos[None, :].expand_as(idx_t).contiguous()
+        touched = int(torch.unique((torch.arange(n_cols, device=dev)[None, :] * vocab
+                                    + modded.long())[valid]).numel())
+        n_bytes = live * n_cols * 4 + CHUNK_ROWS + 8 + touched * 8
+        reps = 20
+
+        def call():
+            return vops.genvocab_update(warm, modded, valid)
+
+        def library():
+            return warm.first_pos.scatter_reduce_(1, idx_t, src, reduce="amin")
+
+        rec = {"shape": f"modded [{CHUNK_ROWS}, {n_cols}], {live} live rows, "
+                        f"into [{n_cols}, {vocab}]",
+               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+               "event_ms": self.event_ms(call, reps), "host_us_per_call": self.host_us(call),
+               "library_event_ms": self.event_ms(library, reps)}
+        whole = self.device_ms([call] * reps)
+        lib = self.device_ms([library] * reps)
+        alone = None
+        if len(vops.KERNEL_GENVOCAB.argtypes) == 7 and not self.rehearse:
+            import ctypes
+
+            p = ctypes.c_void_p
+
+            def kernel_alone():  # an older tree's kernel, on positions made above
+                vops.KERNEL_GENVOCAB.launch(dev, p(warm.first_pos.data_ptr()), None,
+                                            p(modded.data_ptr()), p(pos.data_ptr()),
+                                            CHUNK_ROWS, n_cols, vocab)
+
+            alone = self.device_ms([kernel_alone] * reps)
+        if not self.rehearse:
+            rec.update(device_ms=whole["total"], stages=whole["by_name"],
+                       kernels_per_call=self.kernels_per_call(call),
+                       library_device_ms=lib["total"],
+                       kernel_alone_ms=None if alone is None else alone["total"])
         return rec
 
     def launch_floor(self, _build) -> dict | None:
@@ -397,6 +505,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rehearse", action="store_true")
     ap.add_argument("--time-only", action="store_true",
                     help="skip the checks (for timing a variant tree that computes wrong sums)")
+    ap.add_argument("--only", default=None,
+                    help="check and time only these kernels (comma-separated): "
+                         "embedding_gather_backward, fused_genvocab, genvocab")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -405,6 +516,7 @@ def main(argv=None) -> int:
         print("torch_kernel_bench: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(0, str(ROOT))  # chip_smoke's kernel count per call
     from repro_torch.core import vocab as vocab_lib
     from repro_torch.kernels import _build
     from repro_torch.kernels.embedding_bag import ops as ebops, ref as ebref
@@ -425,15 +537,24 @@ def main(argv=None) -> int:
             name: ptxas_entries(Path(f"{path}.log").read_text()) for name, path in paths.items()}}
         emit({"build": records["build"]})
 
+    only = set(args.only.split(",")) if args.only else {
+        "embedding_gather_backward", "fused_genvocab", "genvocab"}
     failed = []
     records["checks"] = []
-    for shape in [] if args.time_only else REHEARSAL_GRAD_CHECKS if args.rehearse else GRAD_CHECKS:
+    grad_checks = REHEARSAL_GRAD_CHECKS if args.rehearse else GRAD_CHECKS
+    for shape in grad_checks if "embedding_gather_backward" in only and not args.time_only else []:
         rec = bench.check_grad(ebops, ebref, shape)
         emit({"check": rec})
         records["checks"].append(rec)
         if not rec["ok"]:
             failed.append(rec)
-    for rec in [] if args.time_only else bench.check_genvocab(fvops, fvref, vocab_lib):
+    genvocab_checks = []
+    if not args.time_only:
+        if "fused_genvocab" in only:
+            genvocab_checks += bench.check_genvocab(fvops, fvref, vocab_lib)
+        if "genvocab" in only:
+            genvocab_checks += bench.check_per_op_genvocab(vops, vocab_lib)
+    for rec in genvocab_checks:
         records["checks"].append(rec)
         if not rec["ok"]:
             failed.append(rec)
@@ -445,13 +566,20 @@ def main(argv=None) -> int:
 
     records["times"] = {}
     for tag, vocab in (REHEARSAL_RANGES if args.rehearse else RANGES).items():
-        rec = bench.time_grad(ebops, ebref, tag, vocab)
-        records["times"][f"embedding_gather_backward@{tag}"] = rec
-        emit({"time": {f"embedding_gather_backward@{tag}": rec}})
+        timed = []
+        if "embedding_gather_backward" in only:
+            timed.append((f"embedding_gather_backward@{tag}",
+                          lambda: bench.time_grad(ebops, ebref, tag, vocab)))
         for feed, live in (("utf8", UTF8_LIVE), ("binary", CHUNK_ROWS)):
-            rec = bench.time_genvocab(fvops, vops, vocab_lib, vocab, live)
-            records["times"][f"fused_genvocab@{tag}/{feed}"] = rec
-            emit({"time": {f"fused_genvocab@{tag}/{feed}": rec}})
+            if "fused_genvocab" in only:
+                timed.append((f"fused_genvocab@{tag}/{feed}", lambda live=live:
+                              bench.time_genvocab(fvops, vocab_lib, vocab, live)))
+            if "genvocab" in only:
+                timed.append((f"genvocab@{tag}/{feed}", lambda live=live:
+                              bench.time_per_op_genvocab(vops, vocab_lib, vocab, live)))
+        for name, fn in timed:
+            records["times"][name] = fn()
+            emit({"time": {name: records["times"][name]}})
     records["launch_floor"] = bench.launch_floor(_build)
     emit({"launch_floor": records["launch_floor"]})
 

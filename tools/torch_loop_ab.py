@@ -2,23 +2,29 @@
 """Wall time of the port's two loops on two source trees, in one run.
 
     python3 tools/torch_loop_ab.py --compare OLD_SRC NEW_SRC [--rounds 2] [--reps 15]
+                                   [--routes utf8,binary,...]
     python3 tools/torch_loop_ab.py --compare OLD_SRC NEW_SRC --rehearse   # CPU, tiny
 
 Each ``*_SRC`` is a ``src/`` directory that holds a ``repro_torch`` package,
 e.g. the one of this checkout and the one of a commit unpacked with
 ``git archive``. The two trees run alternately, each in a fresh process,
 in the order old, new, new, old, repeated ``--rounds`` times, so that a
-drift of the card or the host falls on both alike. Every process runs the
-default configuration (``PipelineConfig`` with its hints left at None) at
-CRITEO (5K) and CRITEO_1M, on a utf8 feed of 2^18 rows in 1 MiB chunks and
-on a binary feed of 2^22 rows in 16384-row chunks, the feeds of
-chip_smoke.py's main phase. It runs each loop once to warm up, then
-``--reps`` more times, each timed on the host clock and ending in a
-synchronize: loop ① is ``build_state_stream``, loop ② ``transform_stream``.
+drift of the card or the host falls on both alike. Every process runs
+each of ``--routes`` (chip_smoke.py's main-phase routes; by default
+``utf8`` and ``binary``, the default configuration, ``PipelineConfig``
+with its hints left at None) at CRITEO (5K) and CRITEO_1M, on a utf8 feed
+of 2^18 rows in 1 MiB chunks or a binary feed of 2^22 rows in 16384-row
+chunks, the feeds of chip_smoke.py's main phase. The other routes:
+``utf8_bytes_in`` (``use_fused_decode=True``) and
+``crossed_{utf8,binary}_kernels`` (``plan.crossed_criteo()`` through the
+per-op kernels of ``use_kernels=True`` with the fused hints off). It runs
+each loop once to warm up, then ``--reps`` more times, each timed on the
+host clock and ending in a synchronize: loop ① is ``build_state_stream``,
+loop ② ``transform_stream``.
 
 The data is made once, from fixed seeds, by the first process and kept in
 ``--data-cache`` (under build/, which git ignores) for the others. The last
-line printed is a JSON object: per tree, range, feed and loop, the pooled
+line printed is a JSON object: per tree, range, route and loop, the pooled
 repeats' median rows/s, and the new tree's median over the old one's.
 """
 
@@ -39,6 +45,17 @@ CHUNK_BYTES = 1 << 20
 MAX_ROWS = 1 << 14
 ROWS = {"utf8": 1 << 18, "binary": 1 << 22}
 REHEARSAL_ROWS = {"utf8": 2000, "binary": 20000}
+# route → (feed, the PipelineConfig fields it sets; "crossed" stands for
+# plan.crossed_criteo() of the range's schema)
+PER_OP = {"plan": "crossed", "use_kernels": True, "use_fused_kernel": False,
+          "use_fused_vocab": False}
+ROUTES = {
+    "utf8": ("utf8", {}),
+    "binary": ("binary", {}),
+    "utf8_bytes_in": ("utf8", {"use_fused_decode": True}),
+    "crossed_utf8_kernels": ("utf8", {**PER_OP, "use_fused_decode": True}),
+    "crossed_binary_kernels": ("binary", PER_OP),
+}
 
 
 def load_data(np, cache: Path, rows: dict) -> dict:
@@ -67,7 +84,7 @@ def run_tree(args) -> dict:
 
     import repro_torch
     from repro_torch.core import pipeline as P
-    from repro_torch.core import schema as schema_lib, vocab as vocab_lib
+    from repro_torch.core import plan as plan_lib, schema as schema_lib, vocab as vocab_lib
     from repro_torch.data import loader, synth
 
     src = Path(repro_torch.__file__).resolve()
@@ -96,16 +113,22 @@ def run_tree(args) -> dict:
         return times
 
     out = {}
+    feeds = {"utf8": utf8_chunks, "binary": binary_chunks}
     for tag, vr in RANGES.items():
         sch = dataclasses.replace(schema_lib.CRITEO, vocab_range=vr)
         out[tag] = {}
-        for feed, chunks in (("utf8", utf8_chunks), ("binary", binary_chunks)):
-            pipe = P.PiperPipeline(P.PipelineConfig(schema=sch, input_format=feed, device=dev))
+        for route in args.routes.split(","):
+            feed, fields = ROUTES[route]
+            if fields.get("plan") == "crossed":
+                fields = {**fields, "plan": plan_lib.crossed_criteo(sch)}
+            chunks = feeds[feed]
+            pipe = P.PiperPipeline(P.PipelineConfig(schema=sch, input_format=feed, device=dev,
+                                                    **fields))
             state = pipe.build_state_stream(chunks)
             vocab = vocab_lib.finalize(state)
             list(pipe.transform_stream(vocab, chunks))
             n = 1 if args.rehearse else args.reps
-            out[tag][feed] = {
+            out[tag][route] = {
                 "loop1": wall(lambda: pipe.build_state_stream(chunks), n),
                 "loop2": wall(lambda: list(pipe.transform_stream(vocab, chunks)), n),
             }
@@ -121,7 +144,8 @@ def compare(args) -> dict:
     pooled, runs_out = {"old": [], "new": []}, []
     for i, which in enumerate(order):
         cmd = [sys.executable, str(Path(__file__).resolve()), "--src", trees[which],
-               "--reps", str(args.reps), "--data-cache", args.data_cache]
+               "--reps", str(args.reps), "--data-cache", args.data_cache,
+               "--routes", args.routes]
         if args.rehearse:
             cmd.append("--rehearse")
         t0 = time.perf_counter()
@@ -136,14 +160,14 @@ def compare(args) -> dict:
 
     summary = {}
     for tag in RANGES:
-        for feed in ("utf8", "binary"):
+        for route in args.routes.split(","):
             for loop in ("loop1", "loop2"):
                 med = {}
                 for which, runs in pooled.items():
-                    reps = [s for r in runs for s in r["seconds"][tag][feed][loop]]
-                    rows = runs[0]["rows"][feed]
+                    reps = [s for r in runs for s in r["seconds"][tag][route][loop]]
+                    rows = runs[0]["rows"][ROUTES[route][0]]
                     med[which] = rows / statistics.median(reps)
-                summary[f"{tag} {feed} {loop}"] = {
+                summary[f"{tag} {route} {loop}"] = {
                     "old_rows_per_s_median": med["old"], "new_rows_per_s_median": med["new"],
                     "new_over_old": med["new"] / med["old"]}
     return {"order": order, "reps_per_process": args.reps, "old": old, "new": new,
@@ -156,6 +180,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", help="time one tree in this process (used by --compare)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=15)
+    ap.add_argument("--routes", default="utf8,binary",
+                    help=f"comma-separated, of {', '.join(ROUTES)}")
     ap.add_argument("--timeout", type=float, default=600)
     ap.add_argument("--data-cache", default=str(ROOT / "build" / "loop_ab_data.npz"))
     ap.add_argument("--out", help="also write the summary and every run's times to this JSON file")
