@@ -274,9 +274,9 @@ def hostile_rows(np, seed: int, n_dense: int, n_sparse: int, n_rows: int,
                  truncate: int) -> bytes:
     """Rows of every hostile class: empty fields and all-delimiter rows,
     invalid and overlong hex, overlong decimals, stray minus signs, and
-    4136-byte fields, longer than the bytes-in kernels' 4 KiB tiles (and
-    than the decode kernel's 256-byte halo). ``truncate`` cuts
-    that many bytes (the newline first) off the final row."""
+    4136-byte fields, longer than the Pallas kernels' 4 KiB tiles and than
+    the card kernels' 256-byte halo. ``truncate`` cuts that many bytes (the
+    newline first) off the final row."""
     rng = np.random.default_rng(seed)
     rows = []
     for _ in range(n_rows):
@@ -333,6 +333,16 @@ def _exact_rows(np, rng, length: int) -> bytes:
     return out + b"\t" * (CRITEO_FIELDS - 1) + b"a" * last + b"\n"
 
 
+def _rows_up_to(np, rng, length: int, fields: int = CRITEO_FIELDS) -> bytes:
+    """Rows of ``fields`` fields, as many as fit in ``length`` bytes."""
+    out = b""
+    while True:
+        row = _row(np, rng, fields)
+        if len(out) + len(row) > length:
+            return out
+        out += row
+
+
 def decode_edge_chunks(np) -> list:
     """(name, uint8 array, max_rows) of the decode kernels' edge cases,
     Criteo rows, for tiles of 4, 8 or 16 KiB: empty and one-byte chunks, a
@@ -340,7 +350,12 @@ def decode_edge_chunks(np) -> list:
     longer than the 256-byte halo across the 8 KiB tile boundary, rows a
     field too long or short, a truncated final row, more delimiters than
     cells, an all-padding chunk, and data that ends on a tile boundary and
-    one byte past it (8193 bytes)."""
+    one byte past it (8193 bytes). And rows over four 8 KiB tiles that the
+    tiles cannot count from their own newlines (fused_decode_vocab.cu
+    holds their cells back): rows three fields long (the flat rows run
+    ahead of the newlines), max_rows cutting a tile, rows two fields short
+    (the cells past the last delimiter lie in rows below #newlines) with
+    the final row truncated."""
     rng = np.random.default_rng(7)
     whole = b"".join(_row(np, rng) for _ in range(200))
     long_field = b"".join(_row(np, rng, field_len=2 * 16384 + 700 if i == 3 else 0)
@@ -364,6 +379,12 @@ def decode_edge_chunks(np) -> list:
     for length in (8192, 16384):
         ends = _exact_rows(np, rng, length)
         out += [(f"ends_on_{length}", ends, 256), (f"ends_one_byte_past_{length}", ends + b"7", 256)]
+    tiles4 = 4 * 8192 - 100
+    whole4 = _rows_up_to(np, rng, tiles4)
+    cut = whole4.count(b"\n", 0, 2 * 8192 + 4000)  # row `cut` ends inside the third tile
+    out += [("long_rows_over_4_tiles", _rows_up_to(np, rng, tiles4, CRITEO_FIELDS + 3), 256),
+            ("max_rows_inside_a_tile", whole4, cut),
+            ("short_rows_over_4_tiles", _rows_up_to(np, rng, tiles4, CRITEO_FIELDS - 2)[:-5], 256)]
     return [(name, np.frombuffer(raw, np.uint8).copy(), mr) for name, raw, mr in out]
 
 
@@ -823,12 +844,14 @@ class Smoke:
                 rec["launch_floor_ms"] = floor_ms
                 record(f"{name}@{tag}", rec)
 
-            # the bytes-in loops ① and ②: the 1 MiB chunk and the hostile
-            # chunks, into that state (at its own offset and three rows below
-            # the ceiling) and through that vocabulary
+            # the bytes-in loops ① and ②: the 1 MiB chunk, the hostile
+            # chunks and the edge chunks, into that state (at its own offset
+            # and three rows below the ceiling) and through that vocabulary
             fkw = dict(n_fields=sch.n_fields, hex_start=1 + sch.n_dense)
             err = 0.0
-            for b, max_rows, what in byte_chunks:
+            edge = [(torch.from_numpy(arr).to(dev), max_rows, f"edge chunk {name}")
+                    for name, arr, max_rows in decode_edge_chunks(np)]
+            for b, max_rows, what in byte_chunks + edge:
                 for rows_seen in offsets:
                     def fresh_state():
                         return vocab_lib.VocabState(
@@ -853,6 +876,8 @@ class Smoke:
             # the chunk in, rows_seen in and out, each state slot that the
             # decoded chunk above touched read and written once
             b_ms, b_by = bound(n + 8 + state_touched * 8, 12 * n + 4 * rows * n_cols)
+            per_call = self.kernels_per_call(
+                lambda: fdvops.fused_decode_update(st, buf, max_rows=MAX_ROWS, **fkw))
             record(f"fused_decode_genvocab@{tag}", {
                 "max_abs_err": 0,
                 **self.times(
@@ -861,7 +886,14 @@ class Smoke:
                     plain_reps=5),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "shape": f"{n} B chunk, max_rows {MAX_ROWS}, into [{n_cols}, {vr}]",
+                "cuda_launches_per_call": (None if per_call is None
+                                           else sum(per_call.values())),
+                "kernels_per_call": per_call,
+                "launch_floor_ms": floor_ms,
             })
+            expect(per_call is None or list(per_call.values()) == [1],
+                   f"fused_decode_genvocab V={vr}: device work per call {per_call}, "
+                   "expected one kernel")
             # the chunk in, each touched table slot read once, the label,
             # dense, ids and valid outputs written once
             out_bytes = MAX_ROWS * (4 + 4 * n_dense + 4 * n_cols + 1)
@@ -940,9 +972,14 @@ class Smoke:
             self.sync()
             expect(torch.equal(ids_k, vref.apply_vocab(vocab27.table, mt).t()),
                    f"apply_vocab V={vr}: ids differ")
-            # modded values in, ids out, each touched table slot read once
+            # modded values in, ids out, each touched table slot read once;
+            # the 32-byte sectors of 8 slots that hold them are recorded
+            # beside it (the card reads sectors from device memory, but at
+            # 5K the table sits in L2)
+            sectors27 = int(torch.unique(slots27 // 8).numel())
             b_ms, b_by = bound(rows * n27 * 8 + int(torch.unique(slots27).numel()) * 4,
                                2 * rows * n27)
+            per_call = self.kernels_per_call(lambda: vops.apply_vocab(vocab27.table, modded27))
             record(f"apply_vocab@{tag}", {
                 "max_abs_err": 0,
                 **self.times(lambda: vops.apply_vocab(vocab27.table, modded27),
@@ -951,7 +988,15 @@ class Smoke:
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_call": "torch.gather on the transposed int64 indices (the same function)",
                 "shape": f"modded [{rows}, {n27}], table [{n27}, {vr}]",
+                "table_sectors": sectors27,
+                "bound_ms_by_sectors": bound(rows * n27 * 8 + sectors27 * 32, 0)[0],
+                "launch_floor_ms": floor_ms,
+                "cuda_launches_per_call": (None if per_call is None
+                                           else sum(per_call.values())),
+                "kernels_per_call": per_call,
             })
+            expect(per_call is None or list(per_call.values()) == [1],
+                   f"apply_vocab V={vr}: device work per call {per_call}, expected one kernel")
             self.embedding_kernels(record, data, tag, vocab, kw)
 
         # the crossed plan's canonical dense group (dense columns 1-12 of the

@@ -166,17 +166,6 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def decode_scratch(source: str, n: int, cap: int, device: torch.device) -> torch.Tensor:
-    """The int32 scratch of one call of the bytes-in loop-① kernel
-    (fused_decode_vocab.cu), which runs the decode passes of
-    csrc/decode_passes.cuh over ``n`` bytes, keeping the positions of the
-    first ``cap`` delimiters."""
-    fn = library(source).decode_scratch_ints
-    fn.argtypes = [INT64, INT64]
-    fn.restype = INT64
-    return torch.empty(fn(n, cap), dtype=torch.int32, device=device)
-
-
 def check_bytes(byte_buf: torch.Tensor) -> int:
     """Raise unless ``byte_buf`` is a contiguous 1-D uint8 CUDA tensor of
     fewer than 2**31 bytes; return its length."""

@@ -9,10 +9,14 @@ never share an entry, so each entry needs no fill between calls:
   blocks count the valid rows into it, and the last block puts it back
   to 0.
 - :func:`scan_call` — the look-back scratch of the kernels on
-  csrc/decode_tiles.cuh (``decode_utf8.cu`` and ``fused_decode_xform.cu``)
-  and the call's epoch, which the kernel writes into every status word. A
-  call of either kernel takes the next epoch. A CUDA graph would replay
-  one epoch forever, so both refuse to be captured.
+  csrc/decode_tiles.cuh (``decode_utf8.cu``, ``fused_decode_xform.cu`` and
+  ``fused_decode_vocab.cu``) and the call's epoch, which the kernel writes
+  into every status word. A call of any of them takes the next epoch. A
+  CUDA graph would replay one epoch forever, so all three refuse to be
+  captured.
+- :func:`pending` — the pending list of ``fused_decode_vocab.cu``: its
+  counts, which the tile that finishes last puts back to 0, and the cells
+  that the kernel's tiles could not yet scatter.
 """
 
 from __future__ import annotations
@@ -45,6 +49,21 @@ def tally(device: torch.device, stream: int) -> torch.Tensor:
     t = _tallies.get(key)
     if t is None:
         t = _tallies[key] = torch.zeros(1, dtype=torch.int64, device=key[0])
+    return t
+
+
+_pendings: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def pending(device: torch.device, stream: int, ints: int) -> torch.Tensor:
+    """The int32 pending list for launches on ``stream`` (a stream handle)
+    of ``device``, at least ``ints`` words: made zeroed at first use and
+    when a call needs more, then kept, and left with its counts at 0 by
+    every launch."""
+    key = _key(device, stream)
+    t = _pendings.get(key)
+    if t is None or t.numel() < ints:
+        t = _pendings[key] = torch.zeros(ints, dtype=torch.int32, device=key[0])
     return t
 
 

@@ -1,8 +1,9 @@
 // The single-pass parallel UTF-8 decode over a chunk's byte tiles, shared by
-// the kernels that read raw bytes into a [max_rows, n_fields] grid of cells:
+// the kernels that read raw bytes as a [max_rows, n_fields] grid of cells:
 // decode_utf8.cu writes each cell as the int32 value of its field,
-// fused_decode_xform.cu as loop ②'s features of it. Each kernel brings its
-// own writer of a cell (`Out` below); everything else is here.
+// fused_decode_xform.cu as loop ②'s features of it, fused_decode_vocab.cu
+// scatter-mins its sparse cells' positions into loop ①'s state. Each kernel
+// brings its own writer of a cell (`Out` below); everything else is here.
 //
 // What bounds it on an H100: latency more than bytes. It must read the
 // chunk once and write its outputs once: 3.7 MB for a 1 MiB chunk at 16384
@@ -22,7 +23,11 @@
 //      time (__vcmpeq4), and the block compacts the tile-local position of
 //      each delimiter into shared memory;
 //   2. it publishes its counts, learns the delimiters before it and the last
-//      one's byte position by look-back, and publishes its inclusive prefix;
+//      one's byte position by look-back, and publishes its inclusive prefix
+//      (a writer with kRowsKnown: a second warp does the same over the
+//      newlines at once, so the tile knows the chunk's rows through its end,
+//      and the newlines of the 1024 bytes after it, counted while it
+//      stages, prove some rows more);
 //   3. delimiter j of the tile ends field k = (delimiters before) + j; for
 //      each k < max_rows * n_fields one thread folds that field's bytes from
 //      shared memory, in base 16 iff its column is at or above hex_start,
@@ -33,10 +38,12 @@
 //      after every tile's: they wait for the last tile's inclusive prefix
 //      and write every cell at or past the chunk's delimiter count as the
 //      writer's value of a zero (empty) field; the last tile writes
-//      valid[r] = r < #newlines.
+//      valid[r] = r < #newlines. A writer with kRowsKnown has no padding and
+//      no valid: its trailing blocks run Out::finish instead, and every tile
+//      calls Out::tile_done after its fold.
 // No block ever waits on one that has not started: a tile waits only on
-// tiles drawn before it, a trailing block only on the last tile, which was
-// drawn before every trailing block. So the kernel runs at any chunk size
+// tiles drawn before it, a trailing block only on tiles, which were drawn
+// before every trailing block. So the kernel runs at any chunk size
 // and beside any other launch (two streams, two decodes), and tiles never
 // wait behind blocks that spin.
 // Every output cell is written exactly once, so nothing is filled first;
@@ -44,10 +51,17 @@
 // truncated final row keeps the fields it completed.
 //
 // An Out derives from Cells and has
-//   void write(int row, int col, int v) const  — the cell of a field of value v;
+//   void write(int row, int col, int v, unsigned rows_known) const — the cell
+//       of a field of value v; rows_known is 0, or with kRowsKnown the
+//       chunk's newlines through the end of the tile that folded it;
 //   void pad_rows(int64_t r, int64_t w, int64_t nw) const — every cell of the
-//       rows [r, max_rows) as write(row, col, 0) would give it, by worker w
-//       of nw (fill_ints below).
+//       rows [r, max_rows) as write(row, col, 0, 0) would give it, by worker
+//       w of nw (fill_ints below);
+// and with kRowsKnown = true, in place of pad_rows,
+//   void tile_done(const ScanScratch&, int n_tiles, unsigned epoch) const —
+//       called by every thread of a tile after its fold;
+//   void finish(const ScanScratch&, int slice, int n_slices, int n_tiles,
+//       unsigned epoch) const — by every thread of trailing block `slice`.
 #pragma once
 
 #include "lookback.cuh"
@@ -66,6 +80,7 @@ int64_t tiles_for(int64_t n) { return (n + kTileBytes - 1) / kTileBytes; }
 // The grid every Out shares: max_rows rows of n_fields fields (decimal below
 // hex_start, hex from it on), and valid[max_rows].
 struct Cells {
+  static constexpr bool kRowsKnown = false;
   int max_rows, n_fields, hex_start;
   uint8_t* valid;
 };
@@ -112,7 +127,8 @@ template <class Out>
 __device__ void write_padding(const ScanScratch& s, int slice, int n_slices, int n_tiles,
                               unsigned epoch, const Out& o) {
   __shared__ unsigned total_delims;
-  if (threadIdx.x == 0) total_delims = n_tiles > 0 ? wait_inclusive(s, n_tiles - 1, epoch) : 0u;
+  if (threadIdx.x == 0)
+    total_delims = n_tiles > 0 ? wait_inclusive(s.chain, n_tiles - 1, epoch) : 0u;
   __syncthreads();
   const int64_t cells = static_cast<int64_t>(o.max_rows) * o.n_fields;
   const int64_t first = min(static_cast<int64_t>(total_delims), cells);
@@ -122,7 +138,8 @@ __device__ void write_padding(const ScanScratch& s, int slice, int n_slices, int
   const int row0 = static_cast<int>(first / o.n_fields);
   const int col0 = static_cast<int>(first - static_cast<int64_t>(row0) * o.n_fields);
   if (col0 > 0) {
-    for (int64_t c = col0 + w; c < o.n_fields; c += nw) o.write(row0, static_cast<int>(c), 0);
+    for (int64_t c = col0 + w; c < o.n_fields; c += nw)
+      o.write(row0, static_cast<int>(c), 0, 0u);
   }
   o.pad_rows(row0 + (col0 > 0), w, nw);
 }
@@ -155,28 +172,41 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ uint16_t delim_at[kTileBytes];  // tile-local position of each delimiter
   __shared__ Before before;                  // what the tile needs of earlier tiles
   __shared__ unsigned chunk_rows;            // the last tile's: every tile's newlines
+  __shared__ unsigned rows_before;           // kRowsKnown: the earlier tiles' newlines
   uint8_t* const tile_bytes = staged + kHalo;
 
   const bool aligned = (reinterpret_cast<uintptr_t>(buf) & 15) == 0;
   const unsigned t = draw_tile(s.counter);
   if (t >= static_cast<unsigned>(n_tiles)) {
-    // 4. a trailing block: the cells past the chunk's last delimiter, once
-    //    the last tile's inclusive prefix is there (an empty chunk: all of
-    //    them, and valid)
+    // 4. a trailing block: once the tiles are counted, the cells past the
+    //    chunk's last delimiter (an empty chunk: all of them, and valid), or
+    //    the writer's own finish
     const int slice = static_cast<int>(t) - n_tiles;
-    write_padding(s, slice, kTrailing, n_tiles, epoch, o);
-    if (n_tiles == 0 && slice == 0) write_valid(o, 0, threadIdx.x, kThreads);
+    if constexpr (Out::kRowsKnown) {
+      o.finish(s, slice, kTrailing, n_tiles, epoch);
+    } else {
+      write_padding(s, slice, kTrailing, n_tiles, epoch, o);
+      if (n_tiles == 0 && slice == 0) write_valid(o, 0, threadIdx.x, kThreads);
+    }
     return;
   }
   const int64_t start = static_cast<int64_t>(t) * kTileBytes;
 
   // 1. stage the tile and the kHalo bytes before it: coalesced 16-byte loads
+  //    (kRowsKnown: and count the newlines of the kThreads bytes after it)
+  const int64_t ahead_at = start + kTileBytes + threadIdx.x;
+  const bool ahead_newline = Out::kRowsKnown && ahead_at < n && __ldg(buf + ahead_at) == '\n';
   for (int off = 16 * threadIdx.x; off < kHalo + kTileBytes; off += 16 * kThreads) {
     const int64_t g = start - kHalo + off;
     *reinterpret_cast<uint4*>(staged + off) =
         g >= 0 ? load16(buf, n, g, aligned) : make_uint4(0, 0, 0, 0);
   }
-  __syncthreads();
+  unsigned ahead = 0;  // kRowsKnown: newlines in the kThreads bytes after the tile
+  if constexpr (Out::kRowsKnown) {
+    ahead = static_cast<unsigned>(__syncthreads_count(ahead_newline));
+  } else {
+    __syncthreads();
+  }
 
   // classify this thread's kPerThread consecutive bytes, held in registers
   const int mine = threadIdx.x * kPerThread;
@@ -207,11 +237,13 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // 2. publish the tile's counts, learn what the tile needs of the earlier
-  //    ones, publish the inclusive prefix
+  //    ones, publish the inclusive prefix; with kRowsKnown, warp 1 does the
+  //    same over the newline chain meanwhile
   if (threadIdx.x < 32) {
     if (threadIdx.x == 0) {
-      publish_tile(s, t, tile_delims ? static_cast<int>(start) + delim_at[tile_delims - 1] : -1,
-                   tile_newlines, epoch);
+      publish_last(s, t, tile_delims ? static_cast<int>(start) + delim_at[tile_delims - 1] : -1,
+                   epoch);
+      if constexpr (!Out::kRowsKnown) publish_newlines(s, t, 0u, tile_newlines, epoch);
       publish_chain(s, t, t == 0 ? kInclusive : kAggregate, tile_delims, epoch);
     }
     if (t > 0) {
@@ -223,9 +255,19 @@ __global__ void __launch_bounds__(kThreads)
     } else if (threadIdx.x == 0) {
       before = {0u, -1};
     }
-    if (t == static_cast<unsigned>(n_tiles) - 1) {
-      const unsigned rows = sum_newlines(s, n_tiles, epoch);
-      if (threadIdx.x == 0) chunk_rows = rows;
+    if constexpr (!Out::kRowsKnown) {
+      if (t == static_cast<unsigned>(n_tiles) - 1) {
+        const unsigned rows = sum_newlines(s, n_tiles, epoch);
+        if (threadIdx.x == 0) chunk_rows = rows;
+      }
+    }
+  } else if (Out::kRowsKnown && threadIdx.x < 64) {
+    const bool lead = threadIdx.x == 32;
+    if (lead) publish_newlines(s, t, t == 0 ? kInclusive : kAggregate, tile_newlines, epoch);
+    const unsigned r = t > 0 ? exclusive_prefix(s.newlines, t, epoch) : 0u;
+    if (lead) {
+      if (t > 0) publish_newlines(s, t, kInclusive, r + tile_newlines, epoch);
+      rows_before = r;
     }
   }
   __syncthreads();
@@ -233,6 +275,9 @@ __global__ void __launch_bounds__(kThreads)
   // 3. fold each field that a delimiter of this tile ends
   const int64_t cells = static_cast<int64_t>(o.max_rows) * o.n_fields;
   const int64_t k0 = before.delims;
+  // kRowsKnown: rows the chunk surely has, from the newlines through the
+  // tile's end and just after it
+  const unsigned rows_known = Out::kRowsKnown ? rows_before + tile_newlines + ahead : 0u;
   const int n_fold = static_cast<int>(
       max(int64_t{0}, min(static_cast<int64_t>(tile_delims), cells - k0)));
   if (static_cast<int>(threadIdx.x) < n_fold) {
@@ -257,7 +302,7 @@ __global__ void __launch_bounds__(kThreads)
         begin = delim_at[j - 1] + 1;
       }
       for (int i = begin; i < end; ++i) f.add(tile_bytes[i], base);
-      o.write(row, col, f.value());
+      o.write(row, col, f.value(), rows_known);
       row += step_rows;
       col += step_cols;
       if (col >= o.n_fields) {
@@ -267,8 +312,12 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // the last tile writes valid from every tile's newlines
-  if (t == static_cast<unsigned>(n_tiles) - 1) write_valid(o, chunk_rows, threadIdx.x, kThreads);
+  if constexpr (Out::kRowsKnown) {
+    o.tile_done(s, n_tiles, epoch);
+  } else if (t == static_cast<unsigned>(n_tiles) - 1) {
+    // the last tile writes valid from every tile's newlines
+    write_valid(o, chunk_rows, threadIdx.x, kThreads);
+  }
 }
 
 // One launch of decode_tiles_kernel over the n-byte chunk buf on stream.

@@ -8,9 +8,9 @@
 //
 // What bounds it on this card, and its design: decode_tiles.cuh, the
 // single-pass chained scan with decoupled look-back over 8 KiB tiles that
-// fused_decode_xform.cu runs too. This file is its writer of a cell: the
-// field's int32 value into label, dense or sparse, and 0 for a cell no
-// delimiter of the chunk ends.
+// fused_decode_xform.cu and fused_decode_vocab.cu run too. This file is its
+// writer of a cell: the field's int32 value into label, dense or sparse,
+// and 0 for a cell no delimiter of the chunk ends.
 
 #include "decode_tiles.cuh"
 
@@ -22,7 +22,7 @@ struct Out : Cells {
   int* sparse;
   int n_dense, n_sparse;
 
-  __device__ __forceinline__ void write(int row, int col, int v) const {
+  __device__ __forceinline__ void write(int row, int col, int v, unsigned) const {
     if (col == 0) {
       label[row] = v;
     } else if (col <= n_dense) {

@@ -53,7 +53,7 @@ struct XformOut : Cells {
   const int* table;
   int vocab_range;
 
-  __device__ __forceinline__ void write(int row, int col, int v) const {
+  __device__ __forceinline__ void write(int row, int col, int v, unsigned) const {
     const int n_dense = hex_start - 1;
     if (col == 0) {
       label[row] = v;

@@ -1,14 +1,18 @@
 """Public wrapper of the bytes-in loop-① kernel (csrc/fused_decode_vocab.cu).
 
-One launch per chunk from raw UTF-8 bytes to the updated state, at every
-vocab range: ``atomicMin`` on the int32 state in device memory needs no
-memory tier, so the reference's VMEM budget and its decoded-input
-fallback for large ranges have no counterpart. Any buffer length is
-taken, with no padding to a tile multiple. A CPU buffer goes to the
-plain version. On the card, the degenerate cases take the reference
-wrapper's own route — the decode kernel, then the decoded-input loop-①
-kernel: no sparse column, an empty buffer, or a state that tracks
-counts (the bytes-in kernel carries no count plane).
+One launch per chunk from raw UTF-8 bytes to the updated state, and no
+other device work, at every vocab range: ``atomicMin`` on the int32 state
+in device memory needs no memory tier, so the reference's VMEM budget and
+its decoded-input fallback for large ranges have no counterpart. Any
+buffer length is taken, with no padding to a tile multiple. The kernel is
+decode's single-pass look-back scan (csrc/decode_tiles.cuh); its scratch
+and epochs are decode's (``_scratch.scan_call``), so a CUDA graph capture
+raises, as it does for decode, and its pending list is kept per (device,
+stream) (``_scratch.pending``). A CPU buffer goes to the plain version.
+On the card, the degenerate cases take the reference wrapper's own route
+— the decode kernel, then the decoded-input loop-① kernel: no sparse
+column, an empty buffer, or a state that tracks counts (the bytes-in
+kernel carries no count plane).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import vocab as vocab_lib
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _scratch
 from repro_torch.kernels.decode_utf8 import ops as decode_ops
 from repro_torch.kernels.fused_decode_vocab import ref
 from repro_torch.kernels.fused_vocab import ops as fv_ops
@@ -25,7 +29,7 @@ _P, _I = _build.PTR, _build.INT
 KERNEL = _build.Kernel(
     "fused_decode_vocab",
     "fused_decode_genvocab",
-    [_P, _build.INT64, _I, _I, _I, _I, _P, _P, _P, _P],
+    [_P, _build.INT64, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
 )
 
 
@@ -70,11 +74,15 @@ def fused_decode_update(
     _build.check(state.rows_seen, "rows_seen", torch.int32, (), dev)
     if max_rows * n_fields >= 2**31:
         raise ValueError(f"{max_rows} x {n_fields} cells; the kernel takes fewer than 2**31")
-    scratch = _build.decode_scratch("fused_decode_vocab", n, max_rows * n_fields, dev)
+    scratch, epoch = _scratch.scan_call(dev, n, "fused_decode_genvocab")
+    # the 64-bit counts and a word of padding, then (cell, slot) of each
+    # sparse cell the kernel may have to hold back (csrc/fused_decode_vocab.cu)
+    pending = _scratch.pending(
+        dev, torch.cuda.current_stream(dev).cuda_stream, 4 + 2 * max_rows * n_cols)
     rows_seen = torch.empty((), dtype=torch.int32, device=dev)
     p = _build.ptr
     KERNEL.launch(
-        dev, p(byte_buf), n, max_rows, n_fields, hex_start, vocab_range, p(scratch),
-        p(state.first_pos), p(state.rows_seen), p(rows_seen),
+        dev, p(byte_buf), n, max_rows, n_fields, hex_start, vocab_range, p(scratch.words), epoch,
+        p(pending), p(state.first_pos), p(state.rows_seen), p(rows_seen),
     )
     return vocab_lib.VocabState(state.first_pos, rows_seen)

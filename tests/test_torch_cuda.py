@@ -375,7 +375,7 @@ def test_pipeline_on_card_matches_cpu(cuda, criteo_small, fmt):
 
 def _byte_chunks(criteo_small, cuda):
     """Two synth chunks and six hostile ones (every hostile class, fields
-    longer than the 4 KiB tile, truncated final rows), at full width."""
+    longer than the 256-byte halo, truncated final rows), at full width."""
     bufs = [c for c in synth.chunk_stream(criteo_small[0], 4096)][:2]
     bufs += [_hostile(s, 30, s % 3) for s in range(6)]
     return [torch.from_numpy(b).to(cuda) for b in bufs]
@@ -541,6 +541,148 @@ def test_fused_decode_xform_is_one_kernel_a_call(cuda):
     buf = torch.from_numpy(_synth_chunk(1 << 20)).to(cuda)
     found = device_kernels(torch, lambda: fdxops.fused_decode_transform(
         vocab, buf, n_fields=40, hex_start=14, max_rows=1 << 14))
+    assert list(found.values()) == [5], found
+
+
+def _history(vocab_range, seed, cuda, n_cols=26):
+    """A loop-① state's first positions with some history: a fifth of the
+    slots below 50, the rest NEVER."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.where(
+        rng.random((n_cols, vocab_range)) < 0.2, rng.integers(0, 50, (n_cols, vocab_range)),
+        tvocab.NEVER).astype(np.int32)).to(cuda)
+
+
+def _assert_vocab_as_plain(buf, max_rows, history, rows_seen=0, calls=2):
+    """``calls`` launches of the bytes-in loop-① kernel on ``buf``, each into
+    a copy of ``history`` at ``rows_seen``: first_pos and rows_seen bit for
+    bit the plain version's. Every call but the empty buffer's (decode's
+    route) is one launch."""
+    kw = dict(n_fields=40, hex_start=14, max_rows=max_rows)
+
+    def fresh():
+        return tvocab.VocabState(history.clone(),
+                                 torch.tensor(rows_seen, dtype=torch.int32, device=history.device))
+
+    want = fdvref.fused_decode_genvocab(fresh(), buf, **kw)
+    for _ in range(calls):
+        before = fdvops.KERNEL.launches
+        got = fdvops.fused_decode_update(fresh(), buf, **kw)
+        assert fdvops.KERNEL.launches == before + (buf.numel() > 0)
+        assert torch.equal(got.first_pos, want.first_pos)
+        assert torch.equal(got.rows_seen, want.rows_seen)
+
+
+@pytest.mark.parametrize("vocab_range", [97, 5000, 1_000_000])
+@pytest.mark.parametrize("name", list(_EDGE_CHUNKS))
+def test_fused_decode_vocab_single_pass_edge_chunks(cuda, name, vocab_range):
+    """The one-launch bytes-in loop ① on each edge case of the tile scan
+    (the decode's, and rows the tiles cannot count from their own
+    newlines: rows three fields long, max_rows cutting a tile, short rows
+    whose missing fields lie past the last delimiter), twice, into a
+    state with history."""
+    arr, max_rows = _EDGE_CHUNKS[name]
+    _assert_vocab_as_plain(torch.from_numpy(arr).to(cuda), max_rows,
+                           _history(vocab_range, vocab_range, cuda))
+
+
+@pytest.mark.parametrize("vocab_range", [97, 5000, 1_000_000])
+@pytest.mark.parametrize("rows_seen", [0, tvocab.NEVER - 3], ids=["start", "ceiling"])
+def test_fused_decode_vocab_single_pass_larger_chunks(cuda, vocab_range, rows_seen):
+    """The synth 1 MiB chunk at max_rows 16384 and 1000 (below its rows),
+    2 and 4 MiB chunks (a row straddles every tile boundary), and the
+    hostile chunks of 4136-byte fields, into a state with history, at the
+    state's start and three rows below the ceiling."""
+    history = _history(vocab_range, 3, cuda)
+    for size, max_rows in ((1 << 20, 1 << 14), (1 << 20, 1000), (2 << 20, 1 << 14),
+                           (4 << 20, 1 << 14)):
+        buf = torch.from_numpy(_synth_chunk(size)).to(cuda)
+        _assert_vocab_as_plain(buf, max_rows, history, rows_seen)
+    for seed, n_rows, max_rows in ((0, 3000, 2048), (1, 3000, 4096)):
+        buf = _hostile(seed, n_rows, 7 * (seed == 0))
+        _assert_vocab_as_plain(torch.from_numpy(buf).to(cuda), max_rows, history, rows_seen)
+
+
+def test_fused_decode_vocab_shares_decode_scratch_across_an_epoch_wrap(cuda):
+    """Bytes-in loops ① and ② and decode in turn on one stream, across the
+    epoch's wrap: they share the stream's look-back scratch, each call
+    takes the next epoch, and every result is the plain version's."""
+    vocab = _table(26, 97, 1, cuda)
+    history = _history(97, 1, cuda)
+    chunks = [(torch.from_numpy(_EDGE_CHUNKS[n][0]).to(cuda), _EDGE_CHUNKS[n][1])
+              for n in ("more_delims_than_cells", "long_rows_over_4_tiles",
+                        "field_over_halo_across_8192", "short_rows_over_4_tiles")]
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    _assert_vocab_as_plain(*chunks[0], history, calls=1)  # built and warmed up first
+    scratch = _scratch.scan_scratch(
+        cuda, stream, max(_scratch.scratch_ints(c.numel()) for c, _ in chunks))
+    scratch.epoch = _scratch.EPOCH_LIMIT - 3
+    for i in range(9):
+        c, max_rows = chunks[i % 4]
+        if i % 3 == 0:
+            _assert_vocab_as_plain(c, max_rows, history, calls=1)
+        elif i % 3 == 1:
+            _assert_decodes_as_plain(c, max_rows, calls=1)
+        else:
+            _assert_xform_as_plain(c, max_rows, vocab, calls=1)
+    assert _scratch.scan_scratch(cuda, stream, 0) is scratch
+    assert scratch.epoch == 7  # two calls to the limit, then 1..7
+
+
+def test_fused_decode_vocab_on_two_streams_at_once(cuda):
+    """1 and 4 MiB chunks through bytes-in loop ① (each stream its own
+    state) and decode on two streams at once, back to back: every launch
+    ends and each stream's state is the plain version's after every
+    chunk."""
+    history = _history(5000, 2, cuda)
+    chunks = [torch.from_numpy(_synth_chunk(size)).to(cuda) for size in (1 << 20, 4 << 20)]
+    kw = dict(n_fields=40, hex_start=14, max_rows=1 << 14)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    states = [[tvocab.VocabState(history.clone(), torch.tensor(0, dtype=torch.int32,
+                                                               device=cuda))] for _ in streams]
+    snapshots = [[], []]
+    for _ in range(3):
+        for i, st in enumerate(streams):
+            st.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(st):
+                for c in chunks:
+                    state = fdvops.fused_decode_update(states[i][-1], c, **kw)
+                    states[i].append(state)
+                    snapshots[i].append((state.first_pos.clone(), state.rows_seen.clone()))
+                    dops.decode(c, _CRITEO_HEX, **_decode_kw(1 << 14))
+    torch.cuda.synchronize()
+    want = tvocab.VocabState(history.clone(), torch.tensor(0, dtype=torch.int32, device=cuda))
+    wants = []
+    for _ in range(3):
+        for c in chunks:
+            want = fdvref.fused_decode_genvocab(want, c, **kw)
+            wants.append(want)
+    for per_stream in snapshots:
+        for (first_pos, rows_seen), w in zip(per_stream, wants):
+            assert torch.equal(first_pos, w.first_pos)
+            assert torch.equal(rows_seen, w.rows_seen)
+
+
+def test_fused_decode_vocab_refuses_graph_capture(cuda):
+    """A CUDA graph would replay one look-back epoch: capture raises."""
+    history = _history(97, 4, cuda)
+    buf = torch.from_numpy(_EDGE_CHUNKS["truncated_row"][0]).to(cuda)
+    _assert_vocab_as_plain(buf, 256, history, calls=1)  # built and warmed up first
+    state = tvocab.VocabState(history.clone(), torch.tensor(0, dtype=torch.int32, device=cuda))
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            fdvops.fused_decode_update(state, buf, n_fields=40, hex_start=14, max_rows=256)
+
+
+def test_fused_decode_vocab_is_one_kernel_a_call(cuda):
+    """The profiler sees one device kernel per call of bytes-in loop ① on
+    the synth 1 MiB chunk, and nothing else."""
+    state = tvocab.VocabState(_history(5000, 5, cuda), torch.tensor(0, dtype=torch.int32,
+                                                                     device=cuda))
+    buf = torch.from_numpy(_synth_chunk(1 << 20)).to(cuda)
+    found = device_kernels(torch, lambda: fdvops.fused_decode_update(
+        state, buf, n_fields=40, hex_start=14, max_rows=1 << 14))
     assert list(found.values()) == [5], found
 
 
@@ -760,6 +902,61 @@ def test_per_op_apply_vocab_kernel_matches_plain(cuda, vocab_range):
     ids = vops.apply_vocab(table, modded)
     assert torch.equal(ids, vref.apply_vocab(table, modded.t()).t())
     assert torch.equal(ids, tvocab.lookup(tvocab.Vocabulary(table, None), modded))
+
+
+# name → (rows, n_cols, vocab_range, offset): offset is the element of a
+# larger buffer that the modded values start at (1: no 16-byte alignment)
+_APPLY_CASES = {
+    "crossed_16384x27": (16384, 27, 5000, 0),
+    "rows_x_cols_not_a_multiple_of_4": (4099, 27, 1_000_000, 0),
+    "one_column": (1027, 1, 97, 0),
+    "64_columns": (517, 64, 5000, 0),
+    "vocab_1": (301, 27, 1, 0),
+    "vocab_2_31_minus_1": (257, 1, 2**31 - 1, 0),
+    "misaligned_base": (4099, 27, 5000, 1),
+    "misaligned_base_one_column": (63, 1, 97, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(_APPLY_CASES))
+def test_per_op_apply_vocab_edge_cases(cuda, case):
+    """apply_vocab bit for bit against its plain version: element counts
+    that are no multiple of 4, 1, 27 and 64 columns, V of 1 and 2^31 - 1
+    (its one column's table is 8 GiB), modded values that start at an odd
+    element of a larger buffer; and 0 for values outside [0, V)."""
+    rows, n_cols, vocab_range, offset = _APPLY_CASES[case]
+    rng = np.random.default_rng(rows + n_cols)
+    gen = torch.Generator(cuda).manual_seed(rows)
+    table = torch.randint(0, 2**31 - 1, (n_cols, vocab_range), generator=gen,
+                          dtype=torch.int32, device=cuda)
+    values = rng.integers(0, vocab_range, size=rows * n_cols + offset).astype(np.int32)
+    values[offset:offset + 3] = [0, vocab_range - 1, vocab_range // 2]
+    modded = torch.from_numpy(values).to(cuda)[offset:].view(rows, n_cols)
+    assert modded.is_contiguous() and (modded.data_ptr() % 16 != 0) == (offset % 4 != 0)
+    for _ in range(2):
+        before = vops.KERNEL_APPLY.launches
+        ids = vops.apply_vocab(table, modded)
+        assert vops.KERNEL_APPLY.launches == before + 1
+        assert torch.equal(ids, vref.apply_vocab(table, modded.t()).t())
+    if vocab_range < 2**31 - 1:
+        bad = modded.clone()
+        bad.view(-1)[::7] = -1
+        bad.view(-1)[3::7] = vocab_range
+        ids = vops.apply_vocab(table, bad)
+        ok = (bad >= 0) & (bad < vocab_range)
+        want = vref.apply_vocab(table, torch.where(ok, bad, 0).t()).t()
+        assert torch.equal(ids, torch.where(ok, want, 0))
+    del table
+
+
+def test_per_op_apply_vocab_is_one_kernel_a_call(cuda):
+    """The profiler sees one device kernel per apply_vocab call on the
+    crossed plan's [16384, 27] chunk, and no other device work."""
+    rng = np.random.default_rng(23)
+    modded = _modded(rng, 16384, 27, 5000, cuda)
+    table = torch.from_numpy(rng.integers(0, 1000, size=(27, 5000)).astype(np.int32)).to(cuda)
+    found = device_kernels(torch, lambda: vops.apply_vocab(table, modded))
+    assert list(found.values()) == [5], found
 
 
 @pytest.mark.parametrize("dtype", ["int32", "float32"])

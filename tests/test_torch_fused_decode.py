@@ -55,10 +55,10 @@ HANDCRAFTED = {
 TRUNCATION_ROWS = b"1\t-7\t0\tdeadbeef\tcafe\n0\t12\t\tf00d\tbeef\n"
 
 
-def _pad(raw) -> np.ndarray:
+def _pad(raw, size=SIZE) -> np.ndarray:
     raw = bytes(raw)
-    assert len(raw) <= SIZE
-    buf = np.zeros(SIZE, np.uint8)
+    assert len(raw) <= size
+    buf = np.zeros(size, np.uint8)
     buf[: len(raw)] = np.frombuffer(raw, np.uint8)
     return buf
 
@@ -216,6 +216,61 @@ def test_long_fields_across_the_card_tile():
     buf = _pad(raw)
     _check_vocab(buf, 2, 3, 32, 53, 7, pallas=True)
     _check_xform(buf, 2, 3, 32, 53, pallas=True)
+
+
+# Three of the card kernels' 8 KiB tiles: the one length of the chunks below.
+TILES_SIZE = 3 * 8192
+
+
+def _rows_over_tiles(seed, fields, max_len, truncate=0) -> bytes:
+    """Rows of ``fields`` fields each (a label, two decimals, hex after
+    them) up to ``max_len`` bytes, the last ``truncate`` bytes cut off."""
+    rng = np.random.default_rng(seed)
+    raw = b""
+    while True:
+        vals = [str(rng.integers(0, 2)), str(rng.integers(-9, 10**4)), str(rng.integers(0, 99))]
+        vals += [f"{rng.integers(0, 2**32):x}" for _ in range(fields - 3)]
+        row = ("\t".join(vals) + "\n").encode()
+        if len(raw) + len(row) > max_len:
+            return raw[: len(raw) - truncate]
+        raw += row
+
+
+# name → (chunk, max_rows), at 2 dense and 3 sparse columns: each chunk
+# spans more than two tiles, and holds cells that the card kernel cannot
+# scatter from the tile that folds them
+OVER_TILES = {
+    # n_fields + 3 fields a row: the flat row of a field runs ahead of the
+    # newlines (by half of them at the end of the chunk)
+    "long_rows": (_rows_over_tiles(1, 9, TILES_SIZE - 100), 1024),
+    # well-formed rows, max_rows cutting the chunk inside its second tile
+    "max_rows_inside_a_tile": (_rows_over_tiles(2, 6, TILES_SIZE - 100), 300),
+    # rows two fields short, the last one truncated: the cells past the
+    # chunk's last delimiter belong to rows below #newlines
+    "short_rows": (_rows_over_tiles(3, 4, TILES_SIZE - 100, truncate=5), 2048),
+}
+
+
+@pytest.mark.parametrize("rows_seen", [0, 7])
+@pytest.mark.parametrize("name", list(OVER_TILES))
+def test_vocab_rows_over_card_tiles(name, rows_seen):
+    """Bytes-in loop ① on chunks of more than two card tiles whose rows
+    cross the tile boundaries: rows longer than n_fields, max_rows inside
+    a tile, short rows. The port against the reference composition and the
+    interpret-mode kernel, which the card kernel's plain version stands
+    for."""
+    raw, max_rows = OVER_TILES[name]
+    assert 2 * 8192 < len(raw) <= TILES_SIZE
+    buf = _pad(raw, TILES_SIZE)
+    newlines = np.flatnonzero(buf == 10)
+    rows, flat_rows = len(newlines), (len(newlines) + int((buf == 9).sum())) // 6
+    if name == "long_rows":
+        assert flat_rows > rows + rows // 3 and max_rows > rows
+    elif name == "max_rows_inside_a_tile":
+        assert 8192 < newlines[max_rows - 1] < 2 * 8192 and rows > max_rows
+    else:
+        assert flat_rows < rows - rows // 4 and max_rows > rows
+    _check_vocab(buf, 2, 3, max_rows, 53, rows_seen, pallas=True)
 
 
 @pytest.mark.parametrize("n_dense,n_sparse", [(0, 3), (3, 0)], ids=["n_dense=0", "n_sparse=0"])

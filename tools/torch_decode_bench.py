@@ -18,8 +18,12 @@ object a line:
    utf8 feed's first 1, 2 and 4 MiB chunks at max_rows 16384, the smoke's
    hostile chunks, a field longer than two tiles, data that ends on a tile
    boundary and one byte past it, n of 0 and 1 and 4097, more delimiters
-   than cells, rows one field too long or short, a truncated row and an
-   all-padding chunk; ``fused_transform`` ids bit for bit and dense
+   than cells, rows one field too long or short, a truncated row, an
+   all-padding chunk, rows three fields long or two short over four tiles
+   and max_rows inside a tile; ``fused_decode_transform`` and
+   ``fused_decode_genvocab`` (``first_pos`` and ``rows_seen``, into a state
+   with history, at ``rows_seen`` 0 and NEVER - 3) on the same chunks and
+   the 1 MiB chunk at max_rows 1000; ``fused_transform`` ids bit for bit and dense
    within rtol 1e-6 at V 1, 2, 97, 4096, 5000, 10^6 and 2^31 - 1 (one
    column there: its table is 8 GiB), with hashes at int32 min and max
    and -1, a row count that is no multiple of 4, and no dense columns;
@@ -35,9 +39,8 @@ object a line:
    finalized from chunks 1 and 2 at V = 5000 and 10^6, with
    ``torch.gather`` on the modded indices beside it. The bytes-in kernels
    ``fused_decode_genvocab`` and ``fused_decode_transform`` on the same
-   chunk, and ``fused_decode_transform`` on the 2 and 4 MiB chunks and the
-   first two hostile chunks too. And an empty kernel's device time (the
-   launch floor).
+   chunk, the 2 and 4 MiB chunks and the first two hostile chunks too. And
+   an empty kernel's device time (the launch floor).
 
 The last line holds every record, with the card's name and power limit
 (nvidia-smi). It exits non-zero if a check failed or there is no card.
@@ -61,6 +64,7 @@ SECTOR = 32  # bytes the card reads from device memory at a time
 RANGES = {"5K": 5000, "1M": 1_000_000}
 REHEARSAL_RANGES = {"5K": 5000, "1M": 20000}
 MAX_ROWS, CHUNK_BYTES, N_DENSE, N_SPARSE = 1 << 14, 1 << 20, 13, 26
+NEVER = 0x7FFFFFFF
 N_FIELDS = 1 + N_DENSE + N_SPARSE
 SOURCES = ("decode_utf8", "fused_xform", "fused_decode_vocab", "fused_decode_xform",
            "fused_vocab")
@@ -146,6 +150,40 @@ class DecodeBench(Bench):
             records.append({"kernel": "fused_decode_transform", "chunk": name,
                             "bytes": int(arr.size), "max_rows": max_rows, "deterministic": same,
                             "exact": exact, "ok": same and exact})
+        return records
+
+    # -- fused_decode_genvocab ------------------------------------------ #
+    def check_decode_genvocab(self, fdvops, fdvref, vocab_lib, chunks) -> list:
+        np, torch = self.np, self.torch
+        import chip_smoke
+
+        cases = [("synth_1MiB", chunks[0], MAX_ROWS), ("synth_1MiB_1000_rows", chunks[0], 1000)]
+        cases += self.sized + self.hostile() + chip_smoke.decode_edge_chunks(np)
+        rng = np.random.default_rng(6)
+        history = np.where(rng.random((N_SPARSE, 5000)) < 0.2,
+                           rng.integers(0, 50, (N_SPARSE, 5000)), NEVER).astype(np.int32)
+        history = torch.from_numpy(history).to(self.dev)
+        fkw = dict(n_fields=N_FIELDS, hex_start=1 + N_DENSE)
+        records = []
+        for name, arr, max_rows in cases:
+            b = torch.from_numpy(arr).to(self.dev)
+            for rows_seen in (0,) + (() if self.rehearse else (NEVER - 3,)):
+                def state():
+                    return vocab_lib.VocabState(history.clone(), torch.tensor(
+                        rows_seen, dtype=torch.int32, device=self.dev))
+
+                got = fdvops.fused_decode_update(state(), b, max_rows=max_rows, **fkw)
+                again = fdvops.fused_decode_update(state(), b, max_rows=max_rows, **fkw)
+                want = fdvref.fused_decode_genvocab(state(), b, max_rows=max_rows, **fkw)
+                self.sync()
+                same = all(torch.equal(getattr(got, f), getattr(again, f))
+                           for f in ("first_pos", "rows_seen"))
+                exact = all(torch.equal(getattr(got, f), getattr(want, f))
+                            for f in ("first_pos", "rows_seen"))
+                records.append({"kernel": "fused_decode_genvocab", "chunk": name,
+                                "bytes": int(arr.size), "max_rows": max_rows,
+                                "rows_seen": rows_seen, "deterministic": same, "exact": exact,
+                                "ok": same and exact})
         return records
 
     # -- fused_transform ------------------------------------------------ #
@@ -264,6 +302,10 @@ class DecodeBench(Bench):
                 lambda: fdxops.fused_decode_transform(vocab, buf, max_rows=MAX_ROWS, **fkw)))
             for size, arr, max_rows in self.sized + self.hostile()[:2]:
                 b = torch.from_numpy(arr).to(dev)
+                add(f"fused_decode_genvocab@{tag}/{size}", lambda: {
+                    "shape": f"{b.numel()} B chunk, max_rows {max_rows}",
+                    **self.timed(lambda: fdvops.fused_decode_update(
+                        st, b, max_rows=max_rows, **fkw))})
                 add(f"fused_decode_transform@{tag}/{size}", lambda: {
                     "shape": f"{b.numel()} B chunk, max_rows {max_rows}",
                     **self.timed(lambda: fdxops.fused_decode_transform(
@@ -292,7 +334,7 @@ def main(argv=None) -> int:
     from repro_torch.core import ops as core_ops, vocab as vocab_lib
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_utf8 import ops as dops, ref as dref
-    from repro_torch.kernels.fused_decode_vocab import ops as fdvops
+    from repro_torch.kernels.fused_decode_vocab import ops as fdvops, ref as fdvref
     from repro_torch.kernels.fused_decode_xform import ops as fdxops, ref as fdxref
     from repro_torch.kernels.fused_xform import ops as fxops, ref as fxref
 
@@ -317,6 +359,7 @@ def main(argv=None) -> int:
     if not args.time_only:
         for rec in (bench.check_decode(dops, dref, chunks)
                     + bench.check_decode_xform(fdxops, fdxref, vocab_lib, chunks)
+                    + bench.check_decode_genvocab(fdvops, fdvref, vocab_lib, chunks)
                     + bench.check_xform(fxops, fxref, vocab_lib)):
             records["checks"].append(rec)
             if not rec["ok"]:

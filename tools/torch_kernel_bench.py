@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The embedding gradient and loop ①'s GenVocab kernels alone on one NVIDIA GPU.
+"""The embedding gradient, loop ①'s GenVocab kernels and the per-op
+ApplyVocab alone on one NVIDIA GPU.
 
     python3 tools/torch_kernel_bench.py [--src SRC] [--out results.json] [--label NAME]
-                                        [--only genvocab,fused_genvocab,embedding_gather_backward]
+        [--only genvocab,fused_genvocab,embedding_gather_backward,apply_vocab]
     python3 tools/torch_kernel_bench.py --rehearse     # plumbing only, on the CPU
 
 ``--src`` is a ``src/`` directory that holds a ``repro_torch`` package
@@ -26,6 +27,10 @@ object a line:
    ``rows_seen``) on the crossed plan's 27 modded columns: the utf8
    chunk's valid prefix, a valid mask that is no prefix, no valid row, 40
    columns, ``rows_seen`` at 0 and NEVER - 3, with and without counts;
+   ``apply_vocab`` bit for bit against ``torch.gather`` at [16384, 27],
+   [4099, 27], [1027, 1] and [517, 64], V 1, 97, 5000 and 10^6 (and 2^31 - 1
+   at one column: an 8 GiB table), from a 16-byte aligned address and from
+   one 4 bytes past it;
 3. ``time``: at the main path's shapes, each kernel's device time per
    call from torch.profiler (kernels and memsets by name, so the
    gradient's stages show apart) and its CUDA-event time per call, back
@@ -43,7 +48,11 @@ object a line:
    (``chip_smoke.device_kernels``), event ms, host µs per call, and
    ``scatter_reduce_(amin)`` on the transposed indices and positions made
    beforehand beside it; where the tree's ``genvocab`` kernel still takes
-   positions (an older tree), the kernel alone too. V = 5000 and 10^6.
+   positions (an older tree), the kernel alone too. ``apply_vocab`` on the
+   crossed plan's [16384, 27] modded chunk through a random table, with
+   ``torch.gather`` on the transposed int64 indices beside it, and its
+   bound by touched slots and by touched 32-byte sectors. V = 5000 and
+   10^6.
 
 The last line holds every record, with the card's name and power limit
 (nvidia-smi). It exits non-zero if a check failed or there is no card.
@@ -473,6 +482,64 @@ class Bench:
                        kernel_alone_ms=None if alone is None else alone["total"])
         return rec
 
+    # -- apply_vocab ---------------------------------------------------- #
+    def check_apply_vocab(self, vops) -> list:
+        torch, np, dev = self.torch, self.np, self.dev
+        records = []
+        ranges = (1, 97, 5000, 20000) if self.rehearse else (1, 97, 5000, 1_000_000, 2**31 - 1)
+        for vocab in ranges:
+            shapes = ((257, 1),) if vocab == 2**31 - 1 else (
+                (CHUNK_ROWS, 27), (4099, 27), (1027, 1), (517, 64))
+            for rows, n_cols in shapes:
+                for offset in (0, 1):
+                    rng = np.random.default_rng(rows + n_cols + vocab % 1000)
+                    table = torch.randint(0, 2**31 - 1, (n_cols, vocab), dtype=torch.int32,
+                                          device=dev)
+                    values = rng.integers(0, vocab, rows * n_cols + offset).astype(np.int32)
+                    modded = torch.from_numpy(values).to(dev)[offset:].view(rows, n_cols)
+                    got = vops.apply_vocab(table, modded)
+                    want = torch.gather(table, 1, modded.t().to(torch.int64)).t()
+                    self.sync()
+                    records.append({"kernel": "apply_vocab", "V": vocab, "rows": rows,
+                                    "n_cols": n_cols, "offset": offset,
+                                    "ok": bool(torch.equal(got, want))})
+                    del table
+        return records
+
+    def time_apply_vocab(self, vops, vocab) -> dict:
+        """apply_vocab on the crossed plan's [16384, 27] modded chunk
+        through a random [27, vocab] table, torch.gather beside it."""
+        torch, dev = self.torch, self.dev
+        modded = self.crossed_modded(torch.from_numpy(self.chunk(11)).to(dev), vocab)
+        n_cols = modded.shape[1]
+        table = torch.randint(0, 2**31 - 1, (n_cols, vocab), dtype=torch.int32, device=dev)
+        idx_t = modded.t().to(torch.int64).contiguous()
+        slots = torch.arange(n_cols, device=dev)[None, :] * vocab + modded.long()
+        touched = int(torch.unique(slots).numel())
+        sectors = int(torch.unique(slots // 8).numel())
+        io = CHUNK_ROWS * n_cols * 8  # the modded values in, the ids out
+        reps = 20
+
+        def call():
+            return vops.apply_vocab(table, modded)
+
+        def library():
+            return torch.gather(table, 1, idx_t)
+
+        rec = {"shape": f"modded [{CHUNK_ROWS}, {n_cols}], table [{n_cols}, {vocab}]",
+               "touched_slots": touched, "touched_sectors": sectors,
+               "bound_ms": (io + touched * 4) / HBM_BYTES_PER_S * 1e3,
+               "bound_ms_by_sectors": (io + sectors * 32) / HBM_BYTES_PER_S * 1e3,
+               "event_ms": self.event_ms(call, reps), "host_us_per_call": self.host_us(call),
+               "library_event_ms": self.event_ms(library, reps)}
+        if not self.rehearse:
+            dev_ms = self.device_ms([call] * reps)
+            lib = self.device_ms([library] * reps)
+            rec.update(device_ms=dev_ms["total"], stages=dev_ms["by_name"],
+                       kernels_per_call=self.kernels_per_call(call),
+                       library_device_ms=lib["total"])
+        return rec
+
     def launch_floor(self, _build) -> dict | None:
         """The device time of an empty kernel, where the tree's
         fused_vocab.cu exports one; None otherwise."""
@@ -507,7 +574,7 @@ def main(argv=None) -> int:
                     help="skip the checks (for timing a variant tree that computes wrong sums)")
     ap.add_argument("--only", default=None,
                     help="check and time only these kernels (comma-separated): "
-                         "embedding_gather_backward, fused_genvocab, genvocab")
+                         "embedding_gather_backward, fused_genvocab, genvocab, apply_vocab")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -538,7 +605,7 @@ def main(argv=None) -> int:
         emit({"build": records["build"]})
 
     only = set(args.only.split(",")) if args.only else {
-        "embedding_gather_backward", "fused_genvocab", "genvocab"}
+        "embedding_gather_backward", "fused_genvocab", "genvocab", "apply_vocab"}
     failed = []
     records["checks"] = []
     grad_checks = REHEARSAL_GRAD_CHECKS if args.rehearse else GRAD_CHECKS
@@ -554,6 +621,8 @@ def main(argv=None) -> int:
             genvocab_checks += bench.check_genvocab(fvops, fvref, vocab_lib)
         if "genvocab" in only:
             genvocab_checks += bench.check_per_op_genvocab(vops, vocab_lib)
+        if "apply_vocab" in only:
+            genvocab_checks += bench.check_apply_vocab(vops)
     for rec in genvocab_checks:
         records["checks"].append(rec)
         if not rec["ok"]:
@@ -577,6 +646,8 @@ def main(argv=None) -> int:
             if "genvocab" in only:
                 timed.append((f"genvocab@{tag}/{feed}", lambda live=live:
                               bench.time_per_op_genvocab(vops, vocab_lib, vocab, live)))
+        if "apply_vocab" in only:
+            timed.append((f"apply_vocab@{tag}", lambda: bench.time_apply_vocab(vops, vocab)))
         for name, fn in timed:
             records["times"][name] = fn()
             emit({"time": {name: records["times"][name]}})
