@@ -15,11 +15,13 @@ Phases, each of which passes or ends the run with a non-zero exit:
      integers bit for bit, dense f32 at rtol 1e-6. Times each kernel, its
      plain version and, where one PyTorch call does comparable work, that
      call (CUDA events, warmed up), beside the least time the card could
-     take (bytes over 3.35 TB/s, or operations over 67 T/s). fused_genvocab
-     is also timed on fresh states (every slot NEVER) and on the binary
-     feed's first chunk (every row live, its own bound), beside an empty
-     kernel's device time (the launch floor); the embedding gradient's
-     record shows its zeroing, sort and sum apart (one torch.profiler pass).
+     take (bytes over 3.35 TB/s, or operations over 67 T/s), and an empty
+     kernel's device time (the launch floor). fused_genvocab and
+     fused_genvocab_slabs are also timed on fresh states (every slot
+     NEVER), fused_genvocab on the binary feed's first chunk (every row
+     live, its own bound), dense_transform on f32 input too; the embedding
+     gradient's record shows its zeroing, sort and sum apart (one
+     torch.profiler pass).
   3. golden — PiperPipeline on the card over tests/goldens/fused_small.npz,
      and with use_fused_decode=True over decode_fused_small.npz, reproduces
      the stored labels, ids and dense values and their digest.
@@ -395,6 +397,7 @@ class Smoke:
         self.torch, self.np = torch, np
         self.rehearse = rehearse
         self.dev = torch.device("cpu" if rehearse else "cuda")
+        self.floor_ms = None  # the launch floor, once the kernels phase measured it
 
     # -- measurement ---------------------------------------------------- #
     def sync(self) -> None:
@@ -520,8 +523,13 @@ class Smoke:
         if self.rehearse:
             fn()
             return None
-        return {e.key[:60]: {"count": e.count, "ms": e.self_device_time_total / 1e3 / reps}
-                for e in traced_kernels(self.torch, fn, reps) if e.self_device_time_total}
+        found = {}  # names cut to 60 characters; kernels whose names agree that far add up
+        for e in traced_kernels(self.torch, fn, reps):
+            if e.self_device_time_total:
+                v = found.setdefault(e.key[:60], {"count": 0, "ms": 0.0})
+                v["count"] += e.count
+                v["ms"] += e.self_device_time_total / 1e3 / reps
+        return found
 
     def kernels_per_call(self, fn, reps: int = 5) -> dict | None:
         """Device kernels and copies of one call of ``fn`` by name
@@ -530,7 +538,10 @@ class Smoke:
         if self.rehearse:
             fn()
             return None
-        return {name[:60]: n / reps for name, n in device_kernels(self.torch, fn, reps).items()}
+        found = {}  # names cut to 60 characters; kernels whose names agree that far add up
+        for name, n in device_kernels(self.torch, fn, reps).items():
+            found[name[:60]] = found.get(name[:60], 0) + n / reps
+        return found
 
     def launch_floor(self) -> float | None:
         """Device ms of one empty kernel (csrc/fused_vocab.cu), launched
@@ -550,7 +561,8 @@ class Smoke:
         def launch():
             expect(fn(torch.cuda.current_stream().cuda_stream) == 0, "empty_kernel: refused")
 
-        return self.each_ms([launch] * 50)
+        self.floor_ms = self.each_ms([launch] * 50)
+        return self.floor_ms
 
     def fresh_ms(self, vocab_lib, n_cols, vr, track, rows_seen, sparse, valid, update,
                  reps: int = 10) -> float | None:
@@ -684,8 +696,14 @@ class Smoke:
         hex_table = sch.field_is_hex()
         records = {}
 
+        # the launch floor: an empty kernel's device time on the same stream,
+        # recorded beside every kernel's time
+        floor_ms = self.launch_floor()
+        emit({"phase": "kernels", "launch_floor_ms": floor_ms,
+              "what": "device time of an empty kernel (fused_vocab.cu::empty_kernel)"})
+
         def record(name, rec):
-            records[name] = rec
+            records[name] = rec = {**rec, "launch_floor_ms": floor_ms}
             emit({"phase": "kernels", "kernel": name, **rec})
 
         # decode: the first 1 MiB chunk of the utf8 feed, then hostile chunks
@@ -713,11 +731,6 @@ class Smoke:
         for name, arr, max_rows in decode_edge_chunks(np):
             decode_both(torch.from_numpy(arr).to(dev), max_rows, f"edge chunk {name}")
 
-        # the launch floor: an empty kernel's device time on the same stream
-        floor_ms = self.launch_floor()
-        emit({"phase": "kernels", "launch_floor_ms": floor_ms,
-              "what": "device time of an empty kernel (fused_vocab.cu::empty_kernel)"})
-
         n = buf.numel()
         b_ms, b_by = bound(n + MAX_ROWS * (4 * sch.n_fields + 1), 12 * n)
         stages = self.stages(lambda: dops.decode(buf, hex_table, **kw))
@@ -732,7 +745,6 @@ class Smoke:
             "cuda_launches_per_call": (None if stages is None
                                        else sum(v["count"] for v in stages.values()) / 5),
             "stages": stages,
-            "launch_floor_ms": floor_ms,
         })
 
         # loops ① and ②: the decoded chunk, into states with some history
@@ -781,6 +793,7 @@ class Smoke:
                     4 * live_rows * n_cols)
                 idx_t = modded.t().contiguous()
                 src = pos[None, :].expand_as(idx_t).contiguous()
+                per_call = self.kernels_per_call(lambda: fvops.fused_update(st, sparse, valid))
                 rec = {
                     "max_abs_err": 0,
                     **self.times(
@@ -796,8 +809,10 @@ class Smoke:
                     # sighting an atomic, as a chunk sees early in a run
                     "fresh_ms": self.fresh_ms(vocab_lib, n_cols, vr, track, base.rows_seen,
                                               sparse, valid, fvops.fused_update),
-                    "launch_floor_ms": floor_ms,
+                    "kernels_per_call": per_call,
                 }
+                expect(per_call is None or list(per_call.values()) == [1],
+                       f"{name} V={vr}: device work per call {per_call}, expected one kernel")
                 if not track:
                     rec["binary"] = self.binary_genvocab(data, vocab_lib, fvops, fvref, base, vr)
                 record(f"{name}@{tag}", rec)
@@ -841,7 +856,6 @@ class Smoke:
                     rec["library_call"] = "torch.gather on pre-modded indices (ids only)"
                     rec["table_sectors"] = sectors
                     rec["bound_ms_by_sectors"] = bound(io_bytes + sectors * 32, 0)[0]
-                rec["launch_floor_ms"] = floor_ms
                 record(f"{name}@{tag}", rec)
 
             # the bytes-in loops ① and ②: the 1 MiB chunk, the hostile
@@ -889,7 +903,6 @@ class Smoke:
                 "cuda_launches_per_call": (None if per_call is None
                                            else sum(per_call.values())),
                 "kernels_per_call": per_call,
-                "launch_floor_ms": floor_ms,
             })
             expect(per_call is None or list(per_call.values()) == [1],
                    f"fused_decode_genvocab V={vr}: device work per call {per_call}, "
@@ -990,7 +1003,6 @@ class Smoke:
                 "shape": f"modded [{rows}, {n27}], table [{n27}, {vr}]",
                 "table_sectors": sectors27,
                 "bound_ms_by_sectors": bound(rows * n27 * 8 + sectors27 * 32, 0)[0],
-                "launch_floor_ms": floor_ms,
                 "cuda_launches_per_call": (None if per_call is None
                                            else sum(per_call.values())),
                 "kernels_per_call": per_call,
@@ -1012,12 +1024,20 @@ class Smoke:
             err = max(err, float((got - want).abs().max()))
         n = d12.numel()
         b_ms, b_by = bound(n * 8, 20 * n)
+        d12f = d12.to(torch.float32)
+        per_call = self.kernels_per_call(lambda: dxops.dense_transform(d12))
+        f32 = self.times(lambda: dxops.dense_transform(d12f), lambda: dxref.dense_transform(d12f))
         record("dense_transform", {
             "max_abs_err": err,
             **self.times(lambda: dxops.dense_transform(d12), lambda: dxref.dense_transform(d12)),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"int32 [{d12.shape[0]}, {d12.shape[1]}]",
+            # the same values as f32 (the same bytes, so the same bound)
+            "f32": {k: f32[k] for k in ("ms", "plain_ms", "call_ms", "ms_from")},
+            "kernels_per_call": per_call,
         })
+        expect(per_call is None or list(per_call.values()) == [1],
+               f"dense_transform: device work per call {per_call}, expected one kernel")
         return records
 
     def genvocab_checks(self, vops, vocab_lib, base, modded, valid, tag: str) -> None:
@@ -1480,6 +1500,10 @@ class Smoke:
                f"{tag} counts: finalize_topk differs")
         self._same(outs, list(pipe_o.transform_stream(vocab_o, chunks)),
                    f"{tag} counts+topk run_stream")
+        if not self.rehearse:
+            # one decode and one fused_genvocab_slabs a chunk in loop ①
+            want = {"decode_scan": len(chunks), "fused_genvocab_slabs": len(chunks)}
+            expect(l1 == want, f"{tag} counts loop ①: launched {l1}, expected {want}")
         result["utf8_counts_topk"] = {
             "k": k, "loop1_s": s1, "loop1_rows_per_s": data["utf8_rows"] / s1,
             "loop2_s": s2, "loop2_rows_per_s": data["utf8_rows"] / s2,
@@ -2144,10 +2168,11 @@ def main(argv=None) -> int:
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "call_ms", "ms_from")},
             **{k: rec[k] for k in ("kernel_route", "tflops", "bound_share", "library_backend",
-                                   "fresh_ms", "binary", "launch_floor_ms", "stages",
+                                   "fresh_ms", "binary", "f32", "stages",
                                    "cuda_launches_per_call", "table_sectors", "bound_ms_by_sectors",
                                    "kernels_per_call")
                if k in rec},
+            "launch_floor_ms": rec.get("launch_floor_ms", smoke.floor_ms),
             "on_main_path": name in PATH_KERNELS + TRAIN_KERNELS + SERVE_KERNELS,
             "shape": rec["shape"],
         })

@@ -56,6 +56,22 @@ inline int grid_for(int64_t n, int threads) {
   return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
 }
 
+// Blocks of ``kernel`` (``threads`` a block, no dynamic shared memory) that
+// the current device holds at once: SMs x resident blocks an SM, from the
+// device's properties. ``cache`` holds one such kernel's answer by device
+// ordinal (64 entries, 0 = not asked yet; a race writes the same value).
+inline int resident_wave(const void* kernel, int threads, int* cache) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (dev < 64 && cache[dev] > 0) return cache[dev];
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  const int b = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (dev < 64) cache[dev] = b;
+  return b;
+}
+
 }  // namespace repro
 
 // Exported by every kernel library, so a wrapper can name a failed launch.

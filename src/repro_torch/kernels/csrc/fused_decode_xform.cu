@@ -20,16 +20,16 @@
 // decode's. The thread that folds field (row, col) writes it straight to
 // its output:
 //   label[row]         the raw value;
-//   dense[row, col-1]  log1pf(fmaxf((float)v, 0));
+//   dense[row, col-1]  log1pf(max((float)v, 0)) (dense_quad.cuh);
 //   ids[row, c]        table[c, v % V], read from device memory at any V.
 // The trailing blocks write every cell at or past the chunk's delimiter
 // count as the transform of a zero field, as the reference's seeded table
 // gives it: label 0, dense log1p(0) = 0 and ids table[c, 0] (not 0). The
 // last tile writes valid[r] = r < #newlines. Every cell is written exactly
-// once; rows past max_rows are never written. Built without fast math, so
-// log1pf keeps its accuracy.
+// once; rows past max_rows are never written.
 
 #include "decode_tiles.cuh"
+#include "dense_quad.cuh"
 
 namespace {
 
@@ -59,7 +59,7 @@ struct XformOut : Cells {
       label[row] = v;
     } else if (col < hex_start) {
       dense[static_cast<int64_t>(row) * n_dense + (col - 1)] =
-          log1pf(fmaxf(static_cast<float>(v), 0.f));
+          neg2zero_log1p(static_cast<float>(v));
     } else {
       const int c = col - hex_start;
       const uint32_t slot = static_cast<uint32_t>(v) % static_cast<uint32_t>(vocab_range);

@@ -23,48 +23,14 @@
 // valid rows counted into a 64-bit tally), with the modulus taken on each
 // hash as it is read.
 //
-// fused_genvocab_counts keeps one thread per element of the [rows, n_cols]
-// matrix (an atomicMin and an atomicAdd each; merging duplicates would
-// need the group's size added, a later redesign) and shares the tally.
+// fused_genvocab_counts runs the same kernel with the count plane: the
+// lane that acts for a group of equal slots also adds the group's size with
+// one atomicAdd, so the counts cost one atomic per distinct slot of 32 rows
+// rather than one per element, and no division or serial count of rows.
 
 #include "genvocab_warp.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // fused_genvocab_counts
-
-// One thread per element of the row-major [rows, n_cols] hashes, each an
-// atomicMin and an atomicAdd; the valid rows counted through the tally.
-__global__ void genvocab_counts_kernel(int* __restrict__ first_pos, int* __restrict__ counts,
-                                       const int* __restrict__ sparse,
-                                       const uint8_t* __restrict__ valid,
-                                       const int* __restrict__ rows_seen_in,
-                                       int* __restrict__ rows_seen_out,
-                                       unsigned long long* __restrict__ tally, int rows,
-                                       int n_cols, int vocab_range) {
-  const uint32_t seen = static_cast<uint32_t>(rows_seen_in[0]);
-  const int64_t total = static_cast<int64_t>(rows) * n_cols;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (int64_t i = first; i < total; i += stride) {
-    const int64_t r = i / n_cols;
-    if (!valid[r]) continue;
-    const uint32_t p = seen + static_cast<uint32_t>(r);  // r < 2^31: no uint32 wrap
-    if (p >= repro::kNever) continue;                    // saturated: dropped
-    const int c = static_cast<int>(i - r * n_cols);
-    const uint32_t v = static_cast<uint32_t>(sparse[i]) % static_cast<uint32_t>(vocab_range);
-    const int64_t slot = static_cast<int64_t>(c) * vocab_range + v;
-    atomicMin(first_pos + slot, static_cast<int>(p));
-    atomicAdd(counts + slot, 1);
-  }
-  int n_valid = 0;
-  for (int64_t r = first; r < rows; r += stride) n_valid += valid[r] != 0;
-  int block_valid;
-  repro::block_exclusive_sum(n_valid, &block_valid);
-  if (threadIdx.x == 0) {
-    finish_rows(tally, tally_rows(tally, block_valid), block_valid, seen, rows_seen_out);
-  }
-}
 
 __global__ void empty() {}
 
@@ -91,13 +57,11 @@ extern "C" int fused_genvocab_counts(void* first_pos, void* counts, const void* 
                                      const void* valid, const void* rows_seen_in,
                                      void* rows_seen_out, void* tally, int rows, int n_cols,
                                      int vocab_range, void* stream) {
-  genvocab_counts_kernel<<<repro::grid_for(static_cast<int64_t>(rows) * n_cols, kThreads),
-                           kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  return launch_genvocab_warp<ModSlot, true>(
       static_cast<int*>(first_pos), static_cast<int*>(counts), static_cast<const int*>(sparse),
       static_cast<const uint8_t*>(valid), static_cast<const int*>(rows_seen_in),
       static_cast<int*>(rows_seen_out), static_cast<unsigned long long*>(tally), rows, n_cols,
-      vocab_range);
-  return static_cast<int>(cudaGetLastError());
+      vocab_range, static_cast<cudaStream_t>(stream));
 }
 
 // An empty kernel on the stream: the launch floor the smoke measures

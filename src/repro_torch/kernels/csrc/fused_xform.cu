@@ -30,10 +30,10 @@
 //    of the quad's first element comes the same way (M for n_sparse), the
 //    next three by a step.
 //  - 64-bit indices throughout.
-// The dense half is log1pf(fmaxf((float)d, 0)), built without fast math so
-// log1pf keeps its accuracy.
+// The dense half is dense_quad.cuh's transform, one copy shared with
+// dense_xform.cu.
 
-#include "common.cuh"
+#include "dense_quad.cuh"
 
 namespace {
 
@@ -46,10 +46,6 @@ __device__ __forceinline__ uint32_t fastmod(uint32_t v, uint64_t m, uint32_t d) 
   const uint64_t hi = static_cast<uint64_t>(static_cast<uint32_t>(low >> 32)) * d +
                       __umulhi(static_cast<uint32_t>(low), d);
   return static_cast<uint32_t>(hi >> 32);
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <bool kGather>
@@ -99,15 +95,10 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       const int64_t e = 4 * (q - quads_s);
       if (e + 4 <= n_d && aligned16(dense) && aligned16(dense_out)) {
-        const int4 d = __ldg(reinterpret_cast<const int4*>(dense + e));
-        *reinterpret_cast<float4*>(dense_out + e) =
-            make_float4(log1pf(fmaxf(static_cast<float>(d.x), 0.f)),
-                        log1pf(fmaxf(static_cast<float>(d.y), 0.f)),
-                        log1pf(fmaxf(static_cast<float>(d.z), 0.f)),
-                        log1pf(fmaxf(static_cast<float>(d.w), 0.f)));
+        *reinterpret_cast<float4*>(dense_out + e) = neg2zero_log1p(load_quad_f32(dense + e, true));
       } else {
         for (int64_t i = e; i < e + 4 && i < n_d; ++i)
-          dense_out[i] = log1pf(fmaxf(static_cast<float>(dense[i]), 0.f));
+          dense_out[i] = neg2zero_log1p(static_cast<float>(dense[i]));
       }
     }
   }

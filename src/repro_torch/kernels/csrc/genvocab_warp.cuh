@@ -1,6 +1,7 @@
 // GenVocab's warp-per-column scatter-min and its row tally, shared by
-// fused_vocab.cu (fused_genvocab: raw hashes, the modulus inside) and
-// vocab.cu (genvocab: modded values, with or without the count plane).
+// fused_vocab.cu (fused_genvocab and fused_genvocab_counts: raw hashes, the
+// modulus inside) and vocab.cu (genvocab: modded values), each with or
+// without the count plane.
 //
 // Layout. One block per 32 consecutive rows, one warp per column (up to 32
 // warps; more columns take turns), lane l on row l, and no barrier, so each

@@ -110,16 +110,9 @@ __global__ void __launch_bounds__(kApplyThreads)
 
 // Blocks of apply_vocab_kernel that the current device holds at once.
 int apply_wave() {
-  static int blocks[64] = {};  // by device ordinal; a race writes the same value
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
-  if (dev < 64 && blocks[dev] > 0) return blocks[dev];
-  int sms = 0, per_sm = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, apply_vocab_kernel, kApplyThreads, 0);
-  const int b = sms * per_sm > 0 ? sms * per_sm : 1;
-  if (dev < 64) blocks[dev] = b;
-  return b;
+  static int blocks[64] = {};
+  return repro::resident_wave(reinterpret_cast<const void*>(apply_vocab_kernel), kApplyThreads,
+                              blocks);
 }
 
 }  // namespace

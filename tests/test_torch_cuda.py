@@ -305,6 +305,104 @@ def test_fused_genvocab_streams_keep_their_own_tally(cuda):
         assert torch.equal(out.rows_seen, seen)
 
 
+# case → (rows, columns, valid rows, share of cells that hold one hash)
+_COUNTS_CASES = {
+    "hot_quarter": (16384, 26, "all", 0.25),
+    "rows_1": (1, 26, "all", 0.0),
+    "rows_31": (31, 26, "all", 0.0),
+    "rows_33": (33, 26, "scattered", 0.0),
+    "rows_4099": (4099, 26, "scattered", 0.0),
+    "40_columns": (4099, 40, "scattered", 0.0),
+    "no_prefix_valid": (16384, 26, "scattered", 0.0),
+    "all_invalid": (16384, 26, "none", 0.0),
+}
+
+
+@pytest.mark.parametrize("vocab_range", [1, 97, 5000, 1_000_000])
+@pytest.mark.parametrize("rows_seen", [16384, tvocab.NEVER - 3], ids=["offset", "ceiling"])
+@pytest.mark.parametrize("case", list(_COUNTS_CASES))
+def test_fused_genvocab_counts_match_plain(cuda, vocab_range, rows_seen, case):
+    """fused_genvocab_counts (the warp-per-column kernel with the count
+    plane) bit for bit on first_pos, counts and rows_seen against its plain
+    version: a Zipf chunk where one hash fills a quarter of the cells (the
+    hot slot's count grows by exactly its live rows), 1, 31, 33 and 4099
+    rows, 40 columns (more than 32 warps), valid rows that are no prefix,
+    no valid row; into a state with history (positions below and above the
+    chunk's, counts 0-8), at an offset and three rows below the ceiling,
+    where the counts stop with the positions."""
+    rows, n_cols, kind, hot = _COUNTS_CASES[case]
+    rng = np.random.default_rng(rows + n_cols + vocab_range % 1000)
+    sparse = _zipf_chunk(rows, 5, hot_share=hot)
+    if n_cols > sparse.shape[1]:
+        sparse = np.ascontiguousarray(np.concatenate([sparse, sparse[::-1, :n_cols - 26]], 1))
+    valid = {"all": np.ones(rows, bool), "none": np.zeros(rows, bool),
+             "scattered": rng.random(rows) < 0.6}[kind]
+    if kind == "scattered":
+        valid[0] = False  # no prefix
+    first = rng.integers(0, 3 * 16384, (n_cols, vocab_range)).astype(np.int32)
+    first[rng.random(first.shape) < 0.5] = tvocab.NEVER
+    counts = rng.integers(0, 9, (n_cols, vocab_range)).astype(np.int32)
+    sp, v = torch.from_numpy(sparse).to(cuda), torch.from_numpy(valid).to(cuda)
+
+    def fresh():
+        return tvocab.VocabState(torch.tensor(first, device=cuda),
+                                 torch.tensor(rows_seen, dtype=torch.int32, device=cuda),
+                                 torch.tensor(counts, device=cuda))
+
+    fvops.KERNEL_COUNTS.launches = 0
+    got = fvops.fused_update(fresh(), sp, v)
+    assert fvops.KERNEL_COUNTS.launches == 1
+    want = fresh()
+    seen = fvref.fused_genvocab(want.first_pos, want.counts, sp, v, want.rows_seen)
+    assert torch.equal(got.first_pos, want.first_pos)
+    assert torch.equal(got.counts, want.counts)
+    assert torch.equal(got.rows_seen, seen)
+    if case == "hot_quarter" and rows_seen == 16384:  # every row live
+        slot = 12345 % vocab_range
+        hits = (sparse.view(np.uint32).astype(np.int64) % vocab_range == slot).sum(0)
+        assert hits.min() > rows // 5
+        np.testing.assert_array_equal(got.counts[:, slot].cpu().numpy() - counts[:, slot], hits)
+    assert int(_scratch.tally(cuda, torch.cuda.current_stream(cuda).cuda_stream)) == 0
+
+
+def test_fused_genvocab_counts_streams_keep_their_own_tally(cuda):
+    """Chunks with counts on two streams at once, each into its own state:
+    each stream counts into its own tally, and both states end as the
+    plain version's."""
+    sparse = torch.from_numpy(_zipf_chunk(16384, 4)).to(cuda)
+    valid = torch.from_numpy(np.random.default_rng(4).random(16384) < 0.7).to(cuda)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = []
+    for i, st in enumerate(streams):
+        st.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(st):
+            s = tvocab.VocabState.init(26, 1_000_000 if i else 5000, track_counts=True,
+                                       device=cuda)
+            s.rows_seen.fill_(i * 100)
+            outs.append(fvops.fused_update(s, sparse, valid))
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        want = tvocab.VocabState.init(26, 1_000_000 if i else 5000, track_counts=True,
+                                      device=cuda)
+        want.rows_seen.fill_(i * 100)
+        seen = fvref.fused_genvocab(want.first_pos, want.counts, sparse, valid, want.rows_seen)
+        assert torch.equal(out.first_pos, want.first_pos)
+        assert torch.equal(out.counts, want.counts)
+        assert torch.equal(out.rows_seen, seen)
+
+
+def test_fused_genvocab_counts_is_one_kernel_a_call(cuda):
+    """One wrapper call is one launch of genvocab_warp_kernel<ModSlot,
+    true> and no other device work."""
+    sparse = torch.from_numpy(_zipf_chunk(16384, 6)).to(cuda)
+    valid = torch.arange(16384, device=cuda) < 3745
+    state = tvocab.VocabState.init(26, 5000, track_counts=True, device=cuda)
+    found = device_kernels(torch, lambda: fvops.fused_update(state, sparse, valid))
+    assert list(found.values()) == [5], found
+    name = next(iter(found))
+    assert "genvocab_warp_kernel" in name and "ModSlot" in name and "true" in name, name
+
+
 @pytest.mark.parametrize("vocab_range", [257, 5000, 1_000_000])
 def test_xform_kernels_match_plain(cuda, vocab_range):
     rng = np.random.default_rng(vocab_range)
@@ -972,6 +1070,64 @@ def test_dense_transform_kernel_matches_plain(cuda, dtype):
     got = dxops.dense_transform(xt)
     assert got.dtype == torch.float32 and got.shape == xt.shape
     torch.testing.assert_close(got, dxref.dense_transform(xt), rtol=1e-6, atol=0, equal_nan=True)
+
+
+def _dense_input(cuda, n, dtype, seed):
+    """n int32 values (extremes first) or n f32 values (NaN, ±inf, -0.0 and
+    1e-30 first), made on the card from a seed."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    if dtype == "int32":
+        x = torch.randint(-(2**31), 2**31 - 1, (n,), dtype=torch.int32, device=cuda,
+                          generator=gen)
+        head = torch.tensor([-(2**31), -1, 0, 1, 2**24 + 1, 2**31 - 1], dtype=torch.int32)
+    else:
+        x = torch.randn(n, device=cuda, generator=gen) * 1e3
+        head = torch.tensor([float("nan"), -float("inf"), -0.0, 1e-30, 3.4e38, float("inf")])
+    k = min(n, len(head))
+    x[:k] = head[:k].to(cuda)
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (3, 1), (5, 13), (1001, 2), (16384, 12),
+                                   (4099, 13), (1 << 22, 13)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_dense_transform_quads_match_plain(cuda, shape, dtype):
+    """dense_transform at rtol 1e-6 against its plain version, NaN equal:
+    element counts 0, 1, 2 and 3 mod 4 (a ragged tail after the quads),
+    the crossed plan's [16384, 12] group, and [2^22, 13], more than one
+    resident wave of blocks."""
+    x = _dense_input(cuda, shape[0] * shape[1], dtype, shape[0]).view(shape)
+    dxops.KERNEL.launches = 0
+    got = dxops.dense_transform(x)
+    assert dxops.KERNEL.launches == 1
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    torch.testing.assert_close(got, dxref.dense_transform(x), rtol=1e-6, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 6, 7, 4099 * 13])
+@pytest.mark.parametrize("x_off,out_off", [(1, 0), (0, 1), (1, 1), (2, 3), (3, 2)])
+def test_dense_transform_misaligned_buffers(cuda, dtype, n, x_off, out_off):
+    """Input and output that start 4, 8 or 12 bytes past a 16-byte boundary
+    (contiguous slices buf[k:]): through the C entry, which writes nothing
+    outside its output, and through the wrapper (which allocates its own
+    output), at rtol 1e-6 against the plain version."""
+    buf = _dense_input(cuda, n + 4, dtype, n)
+    x = buf[x_off:x_off + n]
+    out = torch.full((n + 4,), -7.0, device=cuda)
+    p = dxops._build.ptr
+    dxops.KERNEL.launch(cuda, p(x), p(out[out_off:]), n, int(dtype == "float32"))
+    want = dxref.dense_transform(x)
+    torch.testing.assert_close(out[out_off:out_off + n], want, rtol=1e-6, atol=0, equal_nan=True)
+    assert bool((out[:out_off] == -7.0).all()) and bool((out[out_off + n:] == -7.0).all())
+    torch.testing.assert_close(dxops.dense_transform(x), want, rtol=1e-6, atol=0, equal_nan=True)
+
+
+def test_dense_transform_is_one_kernel_a_call(cuda):
+    x = _dense_input(cuda, 16384 * 12, "int32", 7).view(16384, 12)
+    found = device_kernels(torch, lambda: dxops.dense_transform(x))
+    assert list(found.values()) == [5], found
 
 
 @pytest.mark.parametrize("fmt", ["utf8", "binary"])

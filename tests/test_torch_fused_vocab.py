@@ -5,6 +5,9 @@ forced slab route, with and without the count plane — and against
 kernel's plain version; the CUDA kernel is held to it in
 tests/test_torch_cuda.py and on the card by chip_smoke.py."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ from repro_torch.core import ops as tops
 from repro_torch.core import vocab as tvocab
 from repro_torch.kernels import _scratch
 from repro_torch.kernels.fused_vocab import ops as tfv
+from repro_torch.kernels.fused_vocab import ref as tfv_ref
 
 
 def _chunks(seed, n_cols, sizes):
@@ -85,3 +89,52 @@ def test_tally_is_kept_per_device_and_stream():
     assert a.dtype == torch.int64 and a.shape == (1,) and int(a) == 0
     assert _scratch.tally(torch.device("cpu"), 101) is a
     assert _scratch.tally("cpu", 102) is not a
+
+
+@pytest.mark.parametrize(
+    "n_cols,rows_seen",
+    [(6, tvocab.NEVER - 3), (40, 7), (40, tvocab.NEVER - 3)],
+    ids=["ceiling", "40_columns", "40_columns_at_ceiling"],
+)
+def test_counts_route_edges_match_pallas_slab_route(n_cols, rows_seen):
+    """The count plane where the card kernel splits its work: 40 columns
+    (more than its 32 warps a block) and ``rows_seen`` at NEVER - 3, where
+    positions saturate and the counts stop with them. Against the JAX slab
+    route (``slab_range`` forced, counts tracked; traced, so its host-side
+    ceiling guard stands aside as in a jitted engine) and ``vocab.update``.
+    At the ceiling both wrappers' host-side guards refuse the chunk, so the
+    port is held through its plain version, which its wrapper runs on the
+    CPU."""
+    vocab_range = 300
+    (sparse, valid), = _chunks(n_cols + rows_seen % 1000, n_cols, (37,))
+    valid[::3] = True
+    valid[1::7] = False  # scattered valid rows: no prefix
+    rng = np.random.default_rng(n_cols)
+    first = rng.integers(0, 50, (n_cols, vocab_range)).astype(np.int32)
+    first[rng.random(first.shape) < 0.5] = tvocab.NEVER
+    counts = rng.integers(0, 9, (n_cols, vocab_range)).astype(np.int32)
+
+    def jstate():
+        return jvocab.VocabState(jnp.asarray(first), jnp.int32(rows_seen), jnp.asarray(counts))
+
+    slab = jax.jit(functools.partial(jfv.fused_update, slab_range=128))
+    j = slab(jstate(), jnp.asarray(sparse), jnp.asarray(valid))
+    u = jax.jit(jvocab.update)(jstate(), jops.positive_modulus(jnp.asarray(sparse), vocab_range),
+                               jnp.asarray(valid))
+    for f in ("first_pos", "rows_seen", "counts"):
+        np.testing.assert_array_equal(np.asarray(getattr(j, f)), np.asarray(getattr(u, f)))
+    t = tvocab.VocabState(torch.from_numpy(first.copy()),
+                          torch.tensor(rows_seen, dtype=torch.int32),
+                          torch.from_numpy(counts.copy()))
+    if rows_seen == tvocab.NEVER - 3:
+        with pytest.raises(OverflowError):
+            tfv.fused_update(t, torch.from_numpy(sparse), torch.from_numpy(valid))
+        t.rows_seen = tfv_ref.fused_genvocab(t.first_pos, t.counts, torch.from_numpy(sparse),
+                                             torch.from_numpy(valid), t.rows_seen)
+        # the first three rows alone have positions; the valid ones among them count
+        live = int(valid[:3].sum())
+        assert int((t.counts - torch.from_numpy(counts)).sum()) == live * n_cols
+        assert int(t.rows_seen) == tvocab.NEVER
+    else:
+        t = tfv.fused_update(t, torch.from_numpy(sparse), torch.from_numpy(valid))
+    _same(t, j)

@@ -222,3 +222,24 @@ def test_apply_vocab_dispatcher_matches_reference():
     for use_kernel in (False, True):
         got = tops.apply_vocab(tv, torch.from_numpy(modded), use_kernel=use_kernel)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (4099, 13)], ids=["1x1", "3x5", "4099x13"])
+def test_dense_transform_shapes_match_reference(shape, dtype):
+    """Element counts where the card kernel's four-a-thread quads leave a
+    tail (1, 15 and 53287 elements: 1 and 3 mod 4), one block of the
+    reference's row grid and several with a ragged last one. Against the
+    JAX reference and its Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(shape[0])
+    if dtype == "int32":
+        x = rng.integers(-(2**31), 2**31 - 1, size=shape, dtype=np.int64).astype(np.int32)
+    else:
+        x = (rng.standard_normal(shape) * 1e3).astype(np.float32)
+        x.flat[-1] = np.nan  # NaN stays NaN
+    want = np.asarray(jdx_ref.dense_transform(jnp.asarray(x)))
+    np.testing.assert_allclose(np.asarray(jdx_kernel.dense_transform(jnp.asarray(x))), want,
+                               rtol=1e-6)
+    got = tdx_ops.dense_transform(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)

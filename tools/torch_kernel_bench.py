@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The embedding gradient, loop ①'s GenVocab kernels and the per-op
-ApplyVocab alone on one NVIDIA GPU.
+"""The embedding gradient, loop ①'s GenVocab kernels, the per-op
+ApplyVocab and the dense transform alone on one NVIDIA GPU.
 
     python3 tools/torch_kernel_bench.py [--src SRC] [--out results.json] [--label NAME]
-        [--only genvocab,fused_genvocab,embedding_gather_backward,apply_vocab]
+        [--only genvocab,fused_genvocab,fused_genvocab_counts,embedding_gather_backward,
+                apply_vocab,dense_transform]
     python3 tools/torch_kernel_bench.py --rehearse     # plumbing only, on the CPU
 
 ``--src`` is a ``src/`` directory that holds a ``repro_torch`` package
@@ -12,8 +13,9 @@ to compare two trees on one card (old, new, new, old). It prints, one JSON
 object a line:
 
 1. ``build``: the seconds to build ``csrc/embedding_bag.cu``,
-   ``csrc/fused_vocab.cu`` and ``csrc/vocab.cu``, and for each kernel the
-   registers and spill bytes ``ptxas -v`` reported;
+   ``csrc/fused_vocab.cu``, ``csrc/vocab.cu`` and ``csrc/dense_xform.cu``,
+   and for each kernel the registers and spill bytes ``ptxas -v``
+   reported;
 2. ``check``: each kernel against its plain version, as the card tests
    hold it. ``embedding_gather_backward`` within (n-1)·2^-24·Σ|terms| of
    the float64 plain gradient and bit-identical across two launches, at
@@ -22,7 +24,10 @@ object a line:
    ``fused_genvocab`` bit for bit on ``first_pos`` and ``rows_seen``: a
    fresh and a filled state, a Zipf chunk where one hash fills a quarter
    of the rows, an all-invalid chunk, a row count that is no multiple of
-   32, and ``rows_seen`` at NEVER - 3; the per-op ``genvocab_update``
+   32, and ``rows_seen`` at NEVER - 3; ``fused_genvocab_counts`` on the
+   same cases with the count plane (``counts`` bit for bit too, from 0 on
+   the fresh state and from 0-8 on the filled one); the per-op
+   ``genvocab_update``
    bit for bit against ``vocab.update`` (``first_pos``, ``counts``,
    ``rows_seen``) on the crossed plan's 27 modded columns: the utf8
    chunk's valid prefix, a valid mask that is no prefix, no valid row, 40
@@ -30,7 +35,10 @@ object a line:
    ``apply_vocab`` bit for bit against ``torch.gather`` at [16384, 27],
    [4099, 27], [1027, 1] and [517, 64], V 1, 97, 5000 and 10^6 (and 2^31 - 1
    at one column: an 8 GiB table), from a 16-byte aligned address and from
-   one 4 bytes past it;
+   one 4 bytes past it; ``dense_transform`` within rtol 1e-6 of its plain
+   version (NaN equal), int32 and f32, at [16384, 12], [1, 1], [3, 5],
+   [4099, 13] and [2^22, 13], from a 16-byte aligned address and from one
+   4 bytes past it;
 3. ``time``: at the main path's shapes, each kernel's device time per
    call from torch.profiler (kernels and memsets by name, so the
    gradient's stages show apart) and its CUDA-event time per call, back
@@ -41,7 +49,9 @@ object a line:
    utf8 chunk) or 16384 (a binary chunk), into a state filled by two
    earlier chunks ("warm") or all NEVER ("fresh", a new state for each
    call), the host µs to issue one wrapper call, and an empty kernel's
-   device time (the launch floor, where the tree has one). The per-op
+   device time (the launch floor, where the tree has one);
+   ``fused_genvocab_counts`` alike with the count plane (its bound counts
+   both planes). The per-op
    ``genvocab_update``, the whole call, on the same chunk's hashes modded
    with a 27th column crossed from the first two (the crossed plan's
    shape): device ms per call, the device kernels per call by name
@@ -52,7 +62,14 @@ object a line:
    crossed plan's [16384, 27] modded chunk through a random table, with
    ``torch.gather`` on the transposed int64 indices beside it, and its
    bound by touched slots and by touched 32-byte sectors. V = 5000 and
-   10^6.
+   10^6. ``dense_transform`` on the crossed plan's [16384, 12] int32 dense
+   group and on the same values as f32, with its plain version beside it
+   (no one PyTorch call computes it) and one ``torch.clamp`` of the f32
+   values (one PyTorch elementwise pass over the same bytes). Each timed
+   record holds its byte and operation bounds (``bound_ms_bytes``,
+   ``bound_ms_operations``; ``bound_ms`` is the larger). The launch floor
+   has PyTorch's 1-element ``fill_`` beside it. Device ms by kernel name
+   add up the kernels whose names agree in their first 60 characters.
 
 The last line holds every record, with the card's name and power limit
 (nvidia-smi). It exits non-zero if a check failed or there is no card.
@@ -69,6 +86,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RANGES = {"5K": 5000, "1M": 1_000_000}
 REHEARSAL_RANGES = {"5K": 5000, "1M": 20000}
 N_COLS, DIM, BATCH, CHUNK_ROWS, UTF8_LIVE = 26, 64, 4096, 1 << 14, 3745
@@ -88,6 +106,13 @@ REHEARSAL_GRAD_CHECKS = [c for c in GRAD_CHECKS if c[1] * c[3] <= 5000 * 4097]
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def bounds(n_bytes: int, n_ops: int) -> dict:
+    """The least time (ms) the card could take, by bytes over the memory rate
+    and by operations over the float32 rate; ``bound_ms`` is the larger."""
+    b, o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    return {"bound_ms": max(b, o), "bound_ms_bytes": b, "bound_ms_operations": o}
 
 
 def ptxas_entries(log: str) -> dict:
@@ -169,10 +194,12 @@ class Bench:
                 for c in calls:
                     c()
                 torch.cuda.synchronize()
-            by_name = {e.key[:60]: {"count": e.count, "ms": e.self_device_time_total / 1e3 / n}
-                       for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.self_device_time_total}
+            by_name = {}  # names cut to 60 characters; kernels whose names agree that far add up
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total:
+                    v = by_name.setdefault(e.key[:60], {"count": 0, "ms": 0.0})
+                    v["count"] += e.count
+                    v["ms"] += e.self_device_time_total / 1e3 / n
             if by_name:
                 break
         return {"by_name": by_name, "total": sum(v["ms"] for v in by_name.values())}
@@ -185,8 +212,10 @@ class Bench:
             return None
         from chip_smoke import device_kernels
 
-        return {name[:60]: n / calls
-                for name, n in device_kernels(self.torch, fn, calls).items()}
+        found = {}  # names cut to 60 characters; kernels whose names agree that far add up
+        for name, n in device_kernels(self.torch, fn, calls).items():
+            found[name[:60]] = found.get(name[:60], 0) + n / calls
+        return found
 
     # -- data ----------------------------------------------------------- #
     def chunk(self, seed: int):
@@ -299,22 +328,28 @@ class Bench:
         return rec
 
     # -- fused_genvocab ------------------------------------------------- #
-    def genvocab_case(self, fvops, fvref, vocab_lib, sparse, valid, first_pos, rows_seen):
+    def genvocab_case(self, fvops, fvref, vocab_lib, sparse, valid, first_pos, rows_seen,
+                      counts=None):
         torch = self.torch
 
         def state():
             return vocab_lib.VocabState(first_pos.clone(),
-                                        torch.tensor(rows_seen, dtype=torch.int32, device=self.dev))
+                                        torch.tensor(rows_seen, dtype=torch.int32, device=self.dev),
+                                        None if counts is None else counts.clone())
 
         got = fvops.fused_update(state(), sparse, valid)
         want = state()
-        seen = fvref.fused_genvocab(want.first_pos, None, sparse, valid, want.rows_seen)
+        seen = fvref.fused_genvocab(want.first_pos, want.counts, sparse, valid, want.rows_seen)
         self.sync()
         return bool(torch.equal(got.first_pos, want.first_pos)) and bool(
-            torch.equal(got.rows_seen, seen))
+            torch.equal(got.rows_seen, seen)) and (
+            counts is None or bool(torch.equal(got.counts, want.counts)))
 
-    def check_genvocab(self, fvops, fvref, vocab_lib) -> list:
+    def check_genvocab(self, fvops, fvref, vocab_lib, track: bool = False) -> list:
+        """fused_genvocab (or, with ``track``, fused_genvocab_counts) bit for
+        bit against its plain version."""
         torch, np, dev = self.torch, self.np, self.dev
+        kernel = "fused_genvocab_counts" if track else "fused_genvocab"
         records = []
         base = self.chunk(11)
         for vocab in (5000, 1_000_000) if not self.rehearse else (5000, 20000):
@@ -324,6 +359,8 @@ class Bench:
             filled[rng.random((N_COLS, vocab)) < 0.5] = NEVER
             filled = torch.from_numpy(filled).to(dev)
             fresh = torch.full((N_COLS, vocab), NEVER, dtype=torch.int32, device=dev)
+            counts = {"fresh": torch.zeros_like(fresh), "filled": torch.from_numpy(
+                rng.integers(0, 9, (N_COLS, vocab)).astype(np.int32)).to(dev)}
             hot = base.copy()
             hot[rng.random(hot.shape) < 0.25] = 12345  # one hash in a quarter of the rows
             cases = []
@@ -344,25 +381,27 @@ class Bench:
                 for state_name, fp in (("fresh", fresh), ("filled", filled)):
                     # (on the CPU the wrapper's host-side ceiling guard raises)
                     for rows_seen in (CHUNK_ROWS,) + (() if self.rehearse else (NEVER - 3,)):
-                        ok = self.genvocab_case(fvops, fvref, vocab_lib, sp, v, fp, rows_seen)
-                        records.append({"kernel": "fused_genvocab", "V": vocab, "chunk": name,
+                        ok = self.genvocab_case(fvops, fvref, vocab_lib, sp, v, fp, rows_seen,
+                                                counts[state_name] if track else None)
+                        records.append({"kernel": kernel, "V": vocab, "chunk": name,
                                         "state": state_name, "rows_seen": rows_seen, "ok": ok})
         return records
 
-    def time_genvocab(self, fvops, vocab_lib, vocab, live) -> dict:
+    def time_genvocab(self, fvops, vocab_lib, vocab, live, track: bool = False) -> dict:
         torch, np, dev = self.torch, self.np, self.dev
         sparse_np = self.chunk(11)
         valid_np = np.arange(CHUNK_ROWS) < live
         sparse_np[~valid_np] = 0
         sparse = torch.from_numpy(sparse_np).to(dev)
         valid = torch.from_numpy(valid_np).to(dev)
-        warm = vocab_lib.VocabState.init(N_COLS, vocab, device=dev)
+        warm = vocab_lib.VocabState.init(N_COLS, vocab, track_counts=track, device=dev)
         for seed in (12, 13):
             prev = torch.from_numpy(self.chunk(seed)).to(dev)
             warm = fvops.fused_update(warm, prev, torch.ones(CHUNK_ROWS, dtype=torch.bool,
                                                              device=dev))
         reps = 20
-        fresh = [vocab_lib.VocabState.init(N_COLS, vocab, device=dev) for _ in range(reps)]
+        fresh = [vocab_lib.VocabState.init(N_COLS, vocab, track_counts=track, device=dev)
+                 for _ in range(reps)]
         for s in fresh:
             s.rows_seen.copy_(warm.rows_seen)
         modded = (sparse.to(torch.int64) & 0xFFFFFFFF).remainder(vocab).to(torch.int32)
@@ -371,16 +410,22 @@ class Bench:
 
         touched = int(torch.unique(
             (torch.arange(N_COLS, device=dev)[None, :] * vocab + modded.long())[valid]).numel())
-        n_bytes = live * N_COLS * 4 + CHUNK_ROWS + 8 + touched * 8
-        rec = {"shape": f"[{CHUNK_ROWS}, {N_COLS}], {live} live rows, into [{N_COLS}, {vocab}]",
-               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+        # valid flags in, the live rows' hashes in, rows_seen in and out, each
+        # touched slot of each plane read and written once; the modulus, the
+        # compare and the min of each live cell
+        planes = 2 if track else 1
+        rec = {"shape": f"[{CHUNK_ROWS}, {N_COLS}], {live} live rows, into [{N_COLS}, {vocab}]"
+                        + (" with counts" if track else ""),
+               **bounds(live * N_COLS * 4 + CHUNK_ROWS + 8 + touched * 8 * planes,
+                        4 * live * N_COLS),
                "warm_event_ms": self.event_ms(warm_call, reps),
                "host_us_per_call": self.host_us(warm_call)}
         warm_dev = self.device_ms([warm_call] * reps)
         fresh_dev = self.device_ms([lambda s=s: fvops.fused_update(s, sparse, valid)
                                     for s in fresh])
         if not self.rehearse:
-            rec.update(warm_ms=warm_dev["total"], fresh_ms=fresh_dev["total"])
+            rec.update(warm_ms=warm_dev["total"], fresh_ms=fresh_dev["total"],
+                       stages=warm_dev["by_name"], kernels_per_call=self.kernels_per_call(warm_call))
         return rec
 
     # -- the per-op genvocab -------------------------------------------- #
@@ -540,6 +585,70 @@ class Bench:
                        library_device_ms=lib["total"])
         return rec
 
+    # -- dense_transform ------------------------------------------------ #
+    def dense_input(self, n: int, dtype: str, seed: int):
+        """n int32 values (extremes first) or n f32 values (NaN, ±inf and
+        -0.0 first), made on the device from a seed."""
+        torch = self.torch
+        gen = torch.Generator(self.dev).manual_seed(seed)
+        if dtype == "int32":
+            x = torch.randint(-(2**31), 2**31 - 1, (n,), dtype=torch.int32, device=self.dev,
+                              generator=gen)
+            head = torch.tensor([-(2**31), -1, 0, 1, 2**24 + 1, 2**31 - 1], dtype=torch.int32)
+        else:
+            x = torch.randn(n, device=self.dev, generator=gen) * 1e3
+            head = torch.tensor([float("nan"), -float("inf"), -0.0, 1e-30, float("inf")])
+        k = min(n, len(head))
+        x[:k] = head[:k].to(self.dev)
+        return x
+
+    def check_dense(self, dxops, dxref) -> list:
+        torch = self.torch
+        records = []
+        shapes = [(CHUNK_ROWS, 12), (1, 1), (3, 5), (4099, 13)] + (
+            [] if self.rehearse else [(1 << 22, 13)])
+        for rows, cols in shapes:
+            for dtype in ("int32", "float32"):
+                for offset in (0, 1):
+                    n = rows * cols
+                    x = self.dense_input(n + offset, dtype, rows)[offset:].view(rows, cols)
+                    got, want = dxops.dense_transform(x), dxref.dense_transform(x)
+                    self.sync()
+                    ok = bool(torch.allclose(got, want, rtol=1e-6, atol=0, equal_nan=True))
+                    records.append({"kernel": "dense_transform", "shape": [rows, cols],
+                                    "dtype": dtype, "offset": offset, "ok": ok})
+        return records
+
+    def time_dense(self, dxops, dxref, dtype: str) -> dict:
+        """dense_transform on the crossed plan's [16384, 12] dense group
+        (int32, or the same values as f32), its plain version beside it."""
+        x = self.dense_input(CHUNK_ROWS * 12, "int32", 12).view(CHUNK_ROWS, 12)
+        if dtype == "float32":
+            x = x.to(self.torch.float32)
+        n, reps = x.numel(), 20
+
+        def call():
+            return dxops.dense_transform(x)
+
+        def plain():
+            return dxref.dense_transform(x)
+
+        rec = {"shape": f"{dtype} [{CHUNK_ROWS}, 12]", **bounds(n * 8, 20 * n),
+               "event_ms": self.event_ms(call, reps), "host_us_per_call": self.host_us(call),
+               "plain_event_ms": self.event_ms(plain, reps)}
+        if not self.rehearse:
+            dev_ms = self.device_ms([call] * reps)
+            plain_ms = self.device_ms([plain] * reps)
+            # one PyTorch elementwise pass over the same bytes (not the same
+            # function): clamp of the f32 values
+            xf = x.to(self.torch.float32)
+            clamp = self.device_ms([lambda: self.torch.clamp(xf, min=0.0)] * reps)
+            rec.update(device_ms=dev_ms["total"], stages=dev_ms["by_name"],
+                       torch_clamp_device_ms=clamp["total"],
+                       kernels_per_call=self.kernels_per_call(call),
+                       plain_device_ms=plain_ms["total"], plain_stages=plain_ms["by_name"])
+        return rec
+
     def launch_floor(self, _build) -> dict | None:
         """The device time of an empty kernel, where the tree's
         fused_vocab.cu exports one; None otherwise."""
@@ -560,8 +669,11 @@ class Bench:
             if err:
                 raise RuntimeError(f"empty_kernel: CUDA error {err}")
 
+        one = torch.zeros(1, device=self.dev)
         return {"device_ms": self.device_ms([call] * 50)["total"],
-                "event_ms": self.event_ms(call, 50)}
+                "event_ms": self.event_ms(call, 50),
+                # PyTorch's own smallest kernel beside it: a 1-element fill_
+                "torch_fill_device_ms": self.device_ms([lambda: one.fill_(1.0)] * 50)["total"]}
 
 
 def main(argv=None) -> int:
@@ -574,7 +686,8 @@ def main(argv=None) -> int:
                     help="skip the checks (for timing a variant tree that computes wrong sums)")
     ap.add_argument("--only", default=None,
                     help="check and time only these kernels (comma-separated): "
-                         "embedding_gather_backward, fused_genvocab, genvocab, apply_vocab")
+                         "embedding_gather_backward, fused_genvocab, fused_genvocab_counts, "
+                         "genvocab, apply_vocab, dense_transform")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -586,6 +699,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))  # chip_smoke's kernel count per call
     from repro_torch.core import vocab as vocab_lib
     from repro_torch.kernels import _build
+    from repro_torch.kernels.dense_xform import ops as dxops, ref as dxref
     from repro_torch.kernels.embedding_bag import ops as ebops, ref as ebref
     from repro_torch.kernels.fused_vocab import ops as fvops, ref as fvref
     from repro_torch.kernels.vocab import ops as vops
@@ -599,13 +713,14 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True).stdout.strip()
         t0 = time.perf_counter()
-        paths = _build.build(("embedding_bag", "fused_vocab", "vocab"))
+        paths = _build.build(("embedding_bag", "fused_vocab", "vocab", "dense_xform"))
         records["build"] = {"seconds": time.perf_counter() - t0, "ptxas": {
             name: ptxas_entries(Path(f"{path}.log").read_text()) for name, path in paths.items()}}
         emit({"build": records["build"]})
 
     only = set(args.only.split(",")) if args.only else {
-        "embedding_gather_backward", "fused_genvocab", "genvocab", "apply_vocab"}
+        "embedding_gather_backward", "fused_genvocab", "fused_genvocab_counts", "genvocab",
+        "apply_vocab", "dense_transform"}
     failed = []
     records["checks"] = []
     grad_checks = REHEARSAL_GRAD_CHECKS if args.rehearse else GRAD_CHECKS
@@ -619,10 +734,14 @@ def main(argv=None) -> int:
     if not args.time_only:
         if "fused_genvocab" in only:
             genvocab_checks += bench.check_genvocab(fvops, fvref, vocab_lib)
+        if "fused_genvocab_counts" in only:
+            genvocab_checks += bench.check_genvocab(fvops, fvref, vocab_lib, track=True)
         if "genvocab" in only:
             genvocab_checks += bench.check_per_op_genvocab(vops, vocab_lib)
         if "apply_vocab" in only:
             genvocab_checks += bench.check_apply_vocab(vops)
+        if "dense_transform" in only:
+            genvocab_checks += bench.check_dense(dxops, dxref)
     for rec in genvocab_checks:
         records["checks"].append(rec)
         if not rec["ok"]:
@@ -643,11 +762,18 @@ def main(argv=None) -> int:
             if "fused_genvocab" in only:
                 timed.append((f"fused_genvocab@{tag}/{feed}", lambda live=live:
                               bench.time_genvocab(fvops, vocab_lib, vocab, live)))
+            if "fused_genvocab_counts" in only:
+                timed.append((f"fused_genvocab_counts@{tag}/{feed}", lambda live=live:
+                              bench.time_genvocab(fvops, vocab_lib, vocab, live, track=True)))
             if "genvocab" in only:
                 timed.append((f"genvocab@{tag}/{feed}", lambda live=live:
                               bench.time_per_op_genvocab(vops, vocab_lib, vocab, live)))
         if "apply_vocab" in only:
             timed.append((f"apply_vocab@{tag}", lambda: bench.time_apply_vocab(vops, vocab)))
+        if "dense_transform" in only and tag == "5K":  # the transform has no vocab range
+            for dtype in ("int32", "float32"):
+                timed.append((f"dense_transform/{dtype}",
+                              lambda dtype=dtype: bench.time_dense(dxops, dxref, dtype)))
         for name, fn in timed:
             records["times"][name] = fn()
             emit({"time": {name: records["times"][name]}})

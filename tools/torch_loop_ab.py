@@ -17,7 +17,9 @@ of 2^18 rows in 1 MiB chunks or a binary feed of 2^22 rows in 16384-row
 chunks, the feeds of chip_smoke.py's main phase. The other routes:
 ``utf8_bytes_in`` (``use_fused_decode=True``) and
 ``crossed_{utf8,binary}_kernels`` (``plan.crossed_criteo()`` through the
-per-op kernels of ``use_kernels=True`` with the fused hints off). It runs
+per-op kernels of ``use_kernels=True`` with the fused hints off) and
+``utf8_counts`` (``track_vocab_counts=True``: loop ① on the count-plane
+kernel, ``fused_genvocab_slabs``). It runs
 each loop once to warm up, then ``--reps`` more times, each timed on the
 host clock and ending in a synchronize: loop ① is ``build_state_stream``,
 loop ② ``transform_stream``.
@@ -55,6 +57,7 @@ ROUTES = {
     "utf8_bytes_in": ("utf8", {"use_fused_decode": True}),
     "crossed_utf8_kernels": ("utf8", {**PER_OP, "use_fused_decode": True}),
     "crossed_binary_kernels": ("binary", PER_OP),
+    "utf8_counts": ("utf8", {"track_vocab_counts": True}),
 }
 
 
