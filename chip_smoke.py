@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,golden,main,train,serve] [--out results.json]
+    python3 chip_smoke.py [--phases kernels,golden,main,stream,train,serve] [--out results.json]
     python3 chip_smoke.py --rehearse      # plumbing only, on the CPU
 
 Phases, each of which passes or ends the run with a non-zero exit:
@@ -64,6 +64,27 @@ Phases, each of which passes or ends the run with a non-zero exit:
      ones, and one request's logits at its last prompt position must agree
      with the prefill step on that prompt. Prints prefill tokens/s, decode
      ms per engine step, tokens/s and the peak device memory.
+  7. stream — the streaming preprocessing service (repro_torch.stream) at
+     CRITEO and CRITEO_1M, on the utf8 decoded route, the bytes-in route
+     and the binary feed, with the default buckets (1024, 4096, 16384
+     rows) over the first 2^18 rows of each feed. The vocabulary comes from
+     loop ① over the first half; the service warms every bucket, then
+     serves the second half as seeded requests of 1-511 rows plus one of
+     20000 rows that must split, each held to the offline
+     FrozenVocabTransform table of the same rows (integers bit for bit,
+     dense at rtol 1e-6). Each micro-batch must launch exactly its route's
+     kernels (counted, and seen by the profiler), and
+     stream.recompiles_total must equal the bucket count after warm-up,
+     after the pass and after a swap. A second thread absorbs a
+     16384-row payload: the merged VocabState must equal offline loop ①
+     over the same rows in order, and a second pass is served under the
+     new vocabulary (on the utf8 route also with the count plane, through
+     fused_genvocab_slabs). A service with a ChunkCache serves the payloads
+     twice; the second pass must hit on every request, with identical
+     outputs. Prints rows/s, p50/p95/p99 ms, the stall split, the overlap
+     counter, the device's busy share of a profiled window, device ms of
+     each route's kernels and copies at each bucket, and the swap's and
+     the vocab digest's seconds.
 
 The last lines are the {"kernels": [...]} summary, the nvidia-smi name
 and power limit, and {"ok": true, "device": {...}}. Without a CUDA device,
@@ -124,6 +145,28 @@ TRAIN_KERNELS = ("decode_scan", "fused_genvocab", "fused_transform", "embedding_
                  "embedding_gather_backward")
 # The serve phase's path: the prefill's attention layers.
 SERVE_KERNELS = ("flash_attention",)
+# The stream phase's path: loop ② on the decoded, bytes-in and binary
+# routes, and absorb's loop ① (with the count plane on the utf8 route).
+STREAM_KERNELS = ("decode_scan", "fused_transform", "fused_decode_transform", "fused_genvocab",
+                  "fused_genvocab_slabs", "fused_decode_genvocab")
+# The stream phase: the service's default buckets over the first 2^18 rows
+# of each feed (the vocabulary from the first half, requests over the
+# second), request sizes of 1..STREAM_MAX_REQUEST rows from a seeded
+# generator (the reference demo's), one request of STREAM_SPLIT_ROWS that
+# must split, and one absorbed payload of the largest bucket's rows. A
+# rehearsal runs smaller buckets over the rehearsal rows.
+STREAM_ROWS = 1 << 18
+STREAM_BUCKETS = (1024, 4096, 16384)
+REHEARSAL_STREAM_BUCKETS = (64, 256, 1024)
+STREAM_MAX_REQUEST = 511
+STREAM_SPLIT_ROWS = {"card": 20000, "rehearsal": 1500}
+# stream route → (feed, config fields, the kernels each micro-batch launches)
+STREAM_ROUTES = {
+    "utf8": ("utf8", {}, ("decode_scan", "fused_transform")),
+    "utf8_bytes_in": ("utf8", {"use_fused_decode": True}, ("fused_decode_transform",)),
+    "binary": ("binary", {}, ("fused_transform",)),
+}
+STREAM_WAIT_S = 300  # the bound on every wait of the stream phase
 RANGES = {"5K": 5000, "1M": 1_000_000}
 # The train phase: batch rows and steps per range; a CPU rehearsal trains
 # smaller batches and stands a 20000-row table in for the 1M one.
@@ -398,6 +441,7 @@ class Smoke:
         self.rehearse = rehearse
         self.dev = torch.device("cpu" if rehearse else "cuda")
         self.floor_ms = None  # the launch floor, once the kernels phase measured it
+        self.smi = "cpu rehearsal: no card"  # nvidia-smi's name and power limit
 
     # -- measurement ---------------------------------------------------- #
     def sync(self) -> None:
@@ -655,6 +699,7 @@ class Smoke:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True,
         ).stdout.strip().splitlines()[0]
+        self.smi = smi
         info = {"name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
                 "torch": torch.__version__, "cuda": torch.version.cuda,
                 "python": sys.version.split()[0], "nvidia_smi": smi}
@@ -1516,6 +1561,345 @@ class Smoke:
         return launches
 
 
+    # -- phase 7 -------------------------------------------------------- #
+    def stream(self, data, tag: str, vocab_range: int) -> dict:
+        """The streaming service at one vocab range on every stream route.
+        Returns kernel → launches over the phase's path (each route's
+        served pass and its absorbs). Prints what it measured, also when a
+        check fails."""
+        result = {"phase": "stream", "schema": tag, "vocab_range": vocab_range,
+                  "card": self.smi}
+        kernels = counters()
+        launches = dict.fromkeys(kernels, 0)
+        try:
+            for route in STREAM_ROUTES:
+                result[route] = {}
+                self._stream_route(data, vocab_range, route, kernels, launches,
+                                   result[route])
+            return launches
+        finally:
+            result["launches"] = launches
+            emit(result)
+
+    def _stream_payloads(self, data, feed: str, lo: int, sizes):
+        """Consecutive payloads of ``sizes`` rows from row ``lo`` of a feed."""
+        if feed == "utf8":
+            spans = data["utf8_spans"]
+            out, row = [], lo
+            for n in sizes:
+                out.append(data["utf8_buf"][spans[row, 0]:spans[row + n - 1, 1]])
+                row += n
+            return out
+        table, out, row = data["binary"], [], lo
+        for n in sizes:
+            out.append({k: table[k][row:row + n] for k in ("label", "dense", "sparse")})
+            row += n
+        return out
+
+    def _stream_chunks(self, data, feed: str, lo: int, hi: int) -> list:
+        """Rows [lo, hi) of a feed as the offline engine's chunks."""
+        from repro_torch.data import loader, synth
+
+        if feed == "utf8":
+            spans = data["utf8_spans"]
+            return list(synth.chunk_stream(
+                data["utf8_buf"][spans[lo, 0]:spans[hi - 1, 1]], CHUNK_BYTES))
+        part = {k: v[lo:hi] for k, v in data["binary"].items()}
+        stacked = loader.BinaryChunkFeed(part, MAX_ROWS).flat_chunks()
+        return [{k: v[i] for k, v in stacked.items()} for i in range(len(stacked["label"]))]
+
+    def _offline_rows(self, pipe, vocab, chunks) -> dict:
+        """The valid rows of loop ② over ``chunks`` under ``vocab``, on the
+        host."""
+        outs = list(pipe.transform_stream(vocab, chunks))
+        return {f: self.torch.cat([getattr(o, f)[o.valid] for o in outs]).cpu().numpy()
+                for f in ("label", "dense", "sparse")}
+
+    def _served_as(self, outs, want: dict, row0: int, what: str) -> int:
+        """Each request's output against the offline rows from ``row0`` on;
+        returns the row after the last."""
+        np = self.np
+        for i, out in enumerate(outs):
+            n = out["label"].shape[0]
+            for f in ("label", "sparse"):
+                expect(out[f].dtype == np.int32 and np.array_equal(
+                    out[f], want[f][row0:row0 + n]),
+                    f"{what}: request {i} {f} differs from the offline table")
+            expect(np.allclose(out["dense"], want["dense"][row0:row0 + n], rtol=1e-6, atol=0),
+                   f"{what}: request {i} dense beyond rtol 1e-6 of the offline table")
+            row0 += n
+        return row0
+
+    def _wait_applied(self, svc, n: int, what: str) -> None:
+        counter = svc.registry.counter("stream.vocab_apply_total")
+        deadline = time.monotonic() + STREAM_WAIT_S
+        while counter.value < n:
+            expect(time.monotonic() < deadline, f"{what}: the vocabulary swap was never applied")
+            time.sleep(0.001)
+
+    def _absorb_from_thread(self, svc, payload, what: str) -> None:
+        import threading
+
+        errors = []
+
+        def absorb():
+            try:
+                svc.absorb(payload)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        t = threading.Thread(target=absorb, name="absorb")
+        t.start()
+        t.join(timeout=STREAM_WAIT_S)
+        expect(not t.is_alive(), f"{what}: absorb did not return")
+        expect(not errors, f"{what}: absorb raised {errors!r}")
+
+    def _stream_route(self, data, vocab_range: int, route: str, kernels, launches, rec) -> None:
+        torch, np = self.torch, self.np
+        from repro_torch.core import pipeline as P
+        from repro_torch.core import schema as schema_lib, vocab as vocab_lib
+        from repro_torch.data import chunk_cache
+        from repro_torch.stream import StreamingPreprocessService, scheduler
+
+        feed, fields, per_batch = STREAM_ROUTES[route]
+        buckets = REHEARSAL_STREAM_BUCKETS if self.rehearse else STREAM_BUCKETS
+        rows = min(STREAM_ROWS, data[f"{feed}_rows"])
+        half = rows // 2
+        sch = dataclasses.replace(schema_lib.CRITEO, vocab_range=vocab_range)
+        offline_cfg = P.PipelineConfig(schema=sch, device=str(self.dev), input_format=feed,
+                                       **fields)
+        # absorb takes one payload of the largest bucket in one chunk
+        svc_cfg = dataclasses.replace(offline_cfg, max_rows_per_chunk=buckets[-1],
+                                      chunk_bytes=buckets[-1] * sch.max_row_bytes)
+        pipe = P.PiperPipeline(offline_cfg)
+        state_half = pipe.build_state_stream(self._stream_chunks(data, feed, 0, half))
+        second = self._stream_chunks(data, feed, half, rows)
+        vocab_half = vocab_lib.finalize(state_half)
+        want = self._offline_rows(pipe, vocab_half, second)
+        rng = np.random.default_rng(0)
+        split = STREAM_SPLIT_ROWS["rehearsal" if self.rehearse else "card"]
+        sizes, left = [split], rows - half - split
+        while left > 0:
+            n = int(min(rng.integers(1, STREAM_MAX_REQUEST + 1), left))
+            sizes.append(n)
+            left -= n
+        payloads = self._stream_payloads(data, feed, half, sizes)
+        absorbed = self._stream_payloads(data, feed, half, [buckets[-1]])[0]
+        what = f"stream {vocab_range} {route}"
+
+        def clone(st):
+            return vocab_lib.VocabState(st.first_pos.clone(), st.rows_seen.clone(),
+                                        None if st.counts is None else st.counts.clone())
+
+        def served(svc, batch_payloads):
+            handles = [svc.submit(p) for p in batch_payloads]
+            svc.drain(timeout=STREAM_WAIT_S)
+            return [h.result(timeout=STREAM_WAIT_S) for h in handles], handles
+
+        def counted(fn):
+            reset_counters(kernels)
+            self.sync()
+            out = fn()
+            self.sync()
+            got = {name: k.launches for name, k in kernels.items() if k.launches}
+            for name, n in got.items():
+                launches[name] += n
+            return out, got
+
+        svc = StreamingPreprocessService(svc_cfg, clone(state_half), bucket_rows=buckets)
+        recompiles = svc.registry.counter("stream.recompiles_total")
+        batches = svc.registry.counter("stream.batches_total")
+        with svc:
+            svc.warmup(self._stream_payloads(data, feed, half, [c])[0] for c in buckets)
+            rec["recompiles_after_warmup"] = recompiles.value
+            expect(recompiles.value == len(buckets),
+                   f"{what}: {recompiles.value} recompiles after warm-up, expected {len(buckets)}")
+            overlap = svc.registry.counter("stream.overlap_assembly_s")
+            stall0, overlap0, b0 = svc.stall_report()["buckets_s"], overlap.value, batches.value
+            (outs, handles), got = counted(lambda: served(svc, payloads))
+            n_batches = batches.value - b0
+            stall = svc.stall_report()["buckets_s"]
+            expect(isinstance(handles[0], scheduler.CompositeRequest)
+                   and len(handles[0].parts) > 1, f"{what}: the {split}-row request did not split")
+            expect(self._served_as(outs, want, 0, f"{what} pass 1") == rows - half,
+                   f"{what}: pass 1 served a different row count")
+            expect(self.rehearse or got == {k: n_batches for k in per_batch},
+                   f"{what}: {n_batches} micro-batches launched {got}, expected each of "
+                   f"{per_batch} once a batch")
+            # the pass's own stall split (the loop's counters less the
+            # warm-up's) and its overlap
+            rec.update(requests=len(payloads), rows=rows - half, batches=n_batches,
+                       metrics=svc.metrics.snapshot(),
+                       stall_s={b: stall[b] - stall0[b] for b in stall},
+                       overlap_assembly_s=overlap.value - overlap0,
+                       occupancy=svc.registry.get("stream.bucket_occupancy").snapshot())
+            expect(recompiles.value == len(buckets), f"{what}: recompiles grew in the pass")
+
+            # one micro-batch per bucket, by the profiler: exactly the
+            # route's kernels, and the copies in and back
+            one = {c: self._stream_payloads(data, feed, half, [c])[0] for c in buckets}
+            rec["device_ms_per_batch"], rec["device_work_per_batch"] = {}, {}
+            for c in buckets:
+                def batch(c=c):
+                    svc.submit(one[c]).result(timeout=STREAM_WAIT_S)
+                per = self.kernels_per_call(batch)
+                stages = self.stages(batch)
+                rec["device_work_per_batch"][c] = per
+                rec["device_ms_per_batch"][c] = stages
+                if per is not None:
+                    found = {k: v for k, v in per.items() if not k.startswith(("Memcpy", "Memset"))}
+                    expect(sum(found.values()) == len(per_batch),
+                           f"{what}: a {c}-row batch ran kernels {per}, expected {per_batch}")
+            if feed == "utf8":
+                rec["padding_ms"] = self._padding_ms(route, one, vocab_half, sch)
+            # the device's busy share of one window of requests
+            window = payloads[1:129]
+            walls = self.wall_seconds(lambda: served(svc, window), n=3)
+            busy = self.device_seconds(lambda: served(svc, window))
+            rec["window"] = {"requests": len(window),
+                             "rows": sum(sizes[1:129]),
+                             "wall_s": walls,
+                             "busy_share": None if busy is None
+                             else busy / statistics.median(walls)}
+
+            # absorb from a second thread, then the same rows in loop ①
+            # offline, in the main path's chunks (no zero padding, kernels
+            # held to their plain versions at that shape by the main
+            # phase) and in absorb's one padded chunk: the merged state
+            # must match both bit for bit
+            applied = svc.registry.counter("stream.vocab_apply_total").value
+            _, got = counted(lambda: self._absorb_from_thread(svc, absorbed, what))
+            self._wait_applied(svc, applied + 1, what)
+            pipe_abs = P.PiperPipeline(svc_cfg)
+            offline = pipe_abs.vocab_step(clone(state_half),
+                                          self._padded(svc_cfg, absorbed))
+            cut = self._loop1_cut(pipe, clone(state_half), data, feed, half, buckets[-1])
+            merged = svc.vocab_state
+            for f in ("first_pos", "rows_seen"):
+                expect(torch.equal(getattr(merged, f), getattr(cut, f)),
+                       f"{what}: absorbed state {f} differs from offline loop ① in "
+                       "the main path's chunks")
+                expect(torch.equal(getattr(merged, f), getattr(offline, f)),
+                       f"{what}: absorbed state {f} differs from offline loop ①")
+            rec["absorb"] = {"launches": got, "rows": buckets[-1],
+                             "swap_device_s": svc.last_swap_seconds(),
+                             "swap_host_s": svc.registry.get("stream.vocab_swap_s").snapshot()}
+            # loop ① at absorb's chunk (the largest bucket's geometry), by
+            # kernel and copy: the absorbed payload again, into a copy
+            chunk, st = self._padded(svc_cfg, absorbed), clone(state_half)
+            rec["absorb"]["device_ms"] = self.stages(lambda: pipe_abs.vocab_step(st, chunk))
+            want2 = self._offline_rows(pipe, vocab_lib.finalize(offline), second)
+            (outs2, _), _ = counted(lambda: served(svc, payloads))
+            self._served_as(outs2, want2, 0, f"{what} pass 2 (after absorb)")
+            rec["recompiles_after_swap"] = recompiles.value
+            expect(recompiles.value == len(buckets),
+                   f"{what}: {recompiles.value} recompiles after the swap")
+            rec["compile_cache_size"] = svc.compile_cache_size()
+
+        if route == "utf8":
+            rec["counts"] = self._stream_counts(data, sch, offline_cfg, svc_cfg, buckets, half,
+                                                absorbed, clone, counted, what)
+
+        # the chunk cache: a first pass fills it, the second hits everywhere
+        cache = chunk_cache.ChunkCache(capacity_bytes=1 << 30)
+        svc = StreamingPreprocessService(svc_cfg, clone(offline), bucket_rows=buckets,
+                                         cache=cache)
+        with svc:
+            first, handles = served(svc, payloads)
+            leaves = sum(len(getattr(h, "parts", [h])) for h in handles)
+            batches = svc.registry.counter("stream.batches_total")
+            b0, hits0 = batches.value, cache.stats()["hits_total"]
+            again, _ = served(svc, payloads)
+            stats = cache.stats()
+            expect(stats["hits_total"] - hits0 == leaves,
+                   f"{what}: {stats['hits_total'] - hits0} cache hits of {leaves} requests")
+            expect(batches.value == b0, f"{what}: a cached pass dispatched")
+            self._served_as(again, want2, 0, f"{what} cached pass")
+            for a, b in zip(first, again):
+                for f in ("label", "dense", "sparse"):
+                    expect(np.array_equal(a[f], b[f]), f"{what}: a cache hit differs")
+            rec["cache"] = {"stats": stats, "metrics": svc.metrics.snapshot(),
+                            "vocab_digest_s": svc.registry.get("stream.vocab_digest_s").snapshot()}
+
+    def _padding_ms(self, route: str, one: dict, vocab, sch) -> dict:
+        """Device ms of the route's one-launch scan on each bucket's chunk
+        (the rows, then zeros to rows x max_row_bytes, as the scheduler pads
+        them) and on the same rows cut at their end (16-byte aligned)."""
+        torch, np = self.torch, self.np
+        from repro_torch.kernels.decode_utf8 import ops as dops
+        from repro_torch.kernels.fused_decode_xform import ops as fdxops
+
+        out = {}
+        for c, payload in one.items():
+            padded = np.zeros(c * sch.max_row_bytes, np.uint8)
+            padded[:payload.size] = payload
+            cut = padded[:-(-payload.size // 16) * 16]
+            times = {}
+            for what, buf in (("padded", padded), ("cut", cut)):
+                b = torch.from_numpy(buf).to(self.dev)
+                if route == "utf8":
+                    fn = lambda b=b: dops.decode(  # noqa: E731
+                        b, sch.field_is_hex(), n_fields=sch.n_fields, max_rows=c,
+                        n_dense=sch.n_dense, n_sparse=sch.n_sparse)
+                else:
+                    fn = lambda b=b: fdxops.fused_decode_transform(  # noqa: E731
+                        vocab, b, n_fields=sch.n_fields, hex_start=1 + sch.n_dense, max_rows=c)
+                times[what] = {"bytes": int(buf.size), **self.time_ms(fn)}
+            out[c] = times
+        return out
+
+    def _padded(self, cfg, payload):
+        """One payload padded to ``cfg``'s chunk, as absorb pads it."""
+        from repro_torch.stream import make_request, service
+
+        return service.padded_chunk(make_request(payload, cfg), cfg)
+
+    def _loop1_cut(self, pipe, state, data, feed: str, lo: int, rows: int):
+        """Loop ① from ``state`` over rows [lo, lo + rows) in the offline
+        engine's chunks (1 MiB utf8, 16384-row binary), as the main path
+        cuts them."""
+        for chunk in self._stream_chunks(data, feed, lo, lo + rows):
+            state = pipe.vocab_step(state, chunk)
+        return state
+
+    def _stream_counts(self, data, sch, offline_cfg, svc_cfg, buckets, half, absorbed, clone,
+                       counted, what) -> dict:
+        """absorb with the count plane (fused_genvocab_slabs after decode) into
+        a top-k service: the merged state, counts included, must equal
+        offline loop ① over the same rows in order."""
+        torch = self.torch
+        from repro_torch.core import pipeline as P, vocab as vocab_lib
+        from repro_torch.stream import StreamingPreprocessService
+
+        k = sch.vocab_range // 10
+        cfg = dataclasses.replace(offline_cfg, track_vocab_counts=True)
+        svc_cfg = dataclasses.replace(svc_cfg, track_vocab_counts=True)
+        state = P.PiperPipeline(cfg).build_state_stream(
+            self._stream_chunks(data, "utf8", 0, half))
+        svc = StreamingPreprocessService(svc_cfg, clone(state), bucket_rows=buckets,
+                                         finalizer=lambda st: vocab_lib.finalize_topk(st, k))
+        with svc:
+            _, got = counted(lambda: self._absorb_from_thread(svc, absorbed, what))
+            self._wait_applied(svc, 1, f"{what} counts")
+            merged = svc.vocab_state
+        offline = P.PiperPipeline(svc_cfg).vocab_step(clone(state),
+                                                      self._padded(svc_cfg, absorbed))
+        cut = self._loop1_cut(P.PiperPipeline(cfg), clone(state), data, "utf8", half,
+                              buckets[-1])
+        for f in ("first_pos", "counts", "rows_seen"):
+            expect(torch.equal(getattr(merged, f), getattr(cut, f)),
+                   f"{what} counts: absorbed state {f} differs from offline loop ① in "
+                   "the main path's chunks")
+            expect(torch.equal(getattr(merged, f), getattr(offline, f)),
+                   f"{what} counts: absorbed state {f} differs from offline loop ①")
+        if not self.rehearse:
+            expect(got == {"decode_scan": 1, "fused_genvocab_slabs": 1},
+                   f"{what} counts: absorb launched {got}")
+        chunk, st = self._padded(svc_cfg, absorbed), clone(state)
+        pipe = P.PiperPipeline(svc_cfg)
+        return {"k": k, "launches": got, "swap_device_s": svc.last_swap_seconds(),
+                "device_ms": self.stages(lambda: pipe.vocab_step(st, chunk))}
+
     # -- phase 5 -------------------------------------------------------- #
     def train(self, data, tag: str) -> dict:
         """Piper → DLRM training at one range, every train step's launches
@@ -2094,16 +2478,17 @@ def make_data(np, rows: dict) -> dict:
     chunks = list(synth.chunk_stream(buf, CHUNK_BYTES))
     binary = synth.generate_binary(synth.SynthConfig(rows=rows_binary, seed=1))
     binary = {k: binary[k] for k in ("label", "dense", "sparse")}
+    spans = synth.row_spans(buf)
     emit({"phase": "data", "utf8_rows": rows_utf8, "utf8_bytes": int(buf.size),
           "utf8_chunks": len(chunks), "binary_rows": rows_binary,
           "seconds": time.perf_counter() - t0})
-    return {"utf8_buf": buf, "utf8_chunks": chunks, "utf8_rows": rows_utf8,
+    return {"utf8_buf": buf, "utf8_chunks": chunks, "utf8_rows": rows_utf8, "utf8_spans": spans,
             "binary": binary, "binary_rows": rows_binary}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,golden,main,train,serve")
+    ap.add_argument("--phases", default="kernels,golden,main,stream,train,serve")
     ap.add_argument("--out", default=None,
                     help="also write the kernel summary and every printed record to this JSON file")
     ap.add_argument("--rehearse", action="store_true",
@@ -2126,8 +2511,10 @@ def main(argv=None) -> int:
     smoke = Smoke(torch, np, args.rehearse)
     device = smoke.device()
     records, main_launches, train_launches, serve_launches = {}, None, None, None
+    stream_launches = None
     rows = REHEARSAL_ROWS if args.rehearse else ROWS
-    data = make_data(np, rows) if phases & {"kernels", "main", "train", "serve"} else None
+    data = (make_data(np, rows) if phases & {"kernels", "main", "stream", "train", "serve"}
+            else None)
     if "kernels" in phases:
         records = smoke.kernels(data)
     if "golden" in phases:
@@ -2138,6 +2525,13 @@ def main(argv=None) -> int:
             for name in PATH_KERNELS:
                 expect(sum(m[name] for m in main_launches.values()) > 0,
                        f"main path: {name} was never launched")
+    if "stream" in phases:
+        ranges = REHEARSAL_RANGES if args.rehearse else RANGES
+        stream_launches = {tag: smoke.stream(data, tag, vr) for tag, vr in ranges.items()}
+        if not args.rehearse:
+            for name in STREAM_KERNELS:
+                expect(sum(m[name] for m in stream_launches.values()) > 0,
+                       f"stream path: {name} was never launched")
     if "train" in phases:
         train_launches = {tag: smoke.train(data, tag) for tag in RANGES}
         if not args.rehearse:
@@ -2152,9 +2546,10 @@ def main(argv=None) -> int:
                 expect(all(m[name] > 0 for m in serve_launches.values()),
                        f"serve path: {name} was not launched in every prefill")
 
-    # launches on the paths: the main phase's and the train phase's per range,
+    # launches on the paths: the main, stream and train phases' per range,
     # the serve phase's per prefill
-    paths = [m for m in (main_launches, train_launches, serve_launches) if m is not None]
+    paths = [m for m in (main_launches, stream_launches, train_launches, serve_launches)
+             if m is not None]
     kernels = []
     for key, rec in records.items():
         name, _, tag = key.partition("@")
@@ -2173,7 +2568,7 @@ def main(argv=None) -> int:
                                    "kernels_per_call")
                if k in rec},
             "launch_floor_ms": rec.get("launch_floor_ms", smoke.floor_ms),
-            "on_main_path": name in PATH_KERNELS + TRAIN_KERNELS + SERVE_KERNELS,
+            "on_main_path": name in PATH_KERNELS + STREAM_KERNELS + TRAIN_KERNELS + SERVE_KERNELS,
             "shape": rec["shape"],
         })
     seconds = time.perf_counter() - t_start

@@ -28,6 +28,20 @@ otherwise plain PyTorch, the differential oracle. With
 where the plan allows it: each loop is one kernel launch from raw bytes,
 and the decoded field table is never stored. On ``device="cpu"`` every
 stage runs its plain PyTorch version.
+
+Instrumentation (``repro_torch.obs``), as in the reference: while the
+process tracer is on (``obs.enable()``), each chunk runs inside a
+``loop1/chunk`` or ``loop2/chunk`` span labelled with the engine and the
+compiled route, and ``obs.set_stage_spans(True)`` nests ``decode`` and
+``vocab_update`` / ``transform`` spans inside the chunk spans of the
+decoded utf8 route. Spans time host blocks: they launch nothing and
+synchronise nothing. The process registry counts chunks, rows and bytes
+per loop (``pipeline.loop{1,2}_{chunks,rows,bytes}_total``), added once
+a loop call (once a call of a :class:`FrozenVocabTransform`). The loops
+are host-bound, so with the tracer off a chunk pays for neither. The
+rows of a utf8 chunk are counted from its newlines only with stage spans
+on: the count is a host pass over every byte, which costs more than the
+rest of a chunk's host work in the loops.
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import plan_compiler
 from repro_torch.core import schema as schema_lib
@@ -175,11 +190,78 @@ class PiperPipeline:
             config.input_format == "utf8" and self.compiled.decode_xform_dispatch
         )
         self._hex_table = self.schema.field_is_hex()  # host-side: no sync per chunk
+        # Span labels: the compiled plan's routes, stamped on every
+        # per-chunk span so the trace says which code path the time went to.
+        self._vocab_span_labels = {
+            "engine": "piper",
+            "route": (
+                self.compiled.decode_vocab_route
+                if self._bytes_vocab
+                else self.compiled.vocab_route
+            ),
+        }
+        self._xform_span_labels = {
+            "engine": "piper",
+            "route": (
+                self.compiled.decode_xform_route
+                if self._bytes_xform
+                else self.compiled.xform_route
+            ),
+        }
+        # Process-wide rows/bytes counters (per loop), added once a loop
+        # call. utf8 rows are counted from newline frames when the chunk is
+        # a numpy array and stage spans are on; byte counts include the
+        # chunk padding the engine processed.
+        m = obs.metrics()
+        self._c_chunks = {
+            "loop1": m.counter("pipeline.loop1_chunks_total"),
+            "loop2": m.counter("pipeline.loop2_chunks_total"),
+        }
+        self._c_rows = {
+            "loop1": m.counter("pipeline.loop1_rows_total"),
+            "loop2": m.counter("pipeline.loop2_rows_total"),
+        }
+        self._c_bytes = {
+            "loop1": m.counter("pipeline.loop1_bytes_total"),
+            "loop2": m.counter("pipeline.loop2_bytes_total"),
+        }
+
+    def _chunk_size(self, chunk) -> tuple[int, int]:
+        """The rows and bytes one chunk adds to its loop's counters, on the
+        host with no device sync: a binary chunk its rows; a utf8 chunk its
+        byte size, and its newlines only when it is a numpy array and stage
+        spans are on (see the module docstring)."""
+        if self.config.input_format != "utf8":
+            return int(chunk["label"].shape[0]), 0
+        if not isinstance(chunk, np.ndarray):
+            return 0, chunk.numel()
+        rows = int(np.count_nonzero(chunk == schema_lib.NEWLINE)) if obs.stage_spans() else 0
+        return rows, chunk.size
+
+    def _count(self, loop: str, chunks: int, rows: int, nbytes: int) -> None:
+        """Add one loop call's totals to the process counters."""
+        self._c_chunks[loop].add(chunks)
+        self._c_rows[loop].add(rows)
+        self._c_bytes[loop].add(nbytes)
+
+    def _stage_split(self, bytes_routed: bool) -> bool:
+        """Whether per-chunk work carries nested decode / post-decode spans
+        (trace-collection mode; a bytes-routed loop is one launch, and its
+        chunk span carries the route)."""
+        return (
+            obs.stage_spans()
+            and self.config.input_format == "utf8"
+            and not bytes_routed
+        )
 
     def _tensor(self, x) -> torch.Tensor:
+        """``x`` on the engine's device. A pinned host tensor is copied
+        without blocking the host (the copy is ordered on the current
+        stream, and the caller keeps the buffer until the copy is done);
+        a numpy array or pageable tensor is copied as ``Tensor.to`` does."""
         if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
-        return x.to(self.device)
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return x.to(self.device, non_blocking=x.device.type == "cpu" and x.is_pinned())
 
     # ------------------------------------------------------------------ #
     # Decode stage
@@ -248,6 +330,9 @@ class PiperPipeline:
     def build_state_stream(self, chunks: Iterable) -> vocab_lib.VocabState:
         """Loop ① over a host iterator, stopping *before* finalization."""
         state = self.init_state()
+        split = self._stage_split(self._bytes_vocab)
+        spans = split or obs.enabled()
+        n_chunks = n_rows = n_bytes = 0
         # Host-side stream-length guard: positions are int32, so a stream
         # may carry at most vocab.MAX_ROWS rows (beyond that the kernels
         # saturate and drop rows). Track a no-sync upper bound (reading
@@ -255,19 +340,34 @@ class PiperPipeline:
         # cross the ceiling, read the true count and fail loudly if the
         # next chunk could overflow.
         rows_ub = 0
-        for chunk in chunks:
-            cap = self._chunk_rows(chunk)
-            rows_ub += cap
-            if rows_ub > vocab_lib.MAX_ROWS:
-                seen = int(state.rows_seen)
-                if seen + cap > vocab_lib.MAX_ROWS:
-                    raise OverflowError(
-                        f"loop ① stream exceeds the int32 position ceiling: "
-                        f"{seen} rows seen + up to {cap} more > "
-                        f"{vocab_lib.MAX_ROWS}"
-                    )
-                rows_ub = seen + cap
-            state = self.vocab_step(state, chunk)
+        try:
+            for chunk in chunks:
+                cap = self._chunk_rows(chunk)
+                rows_ub += cap
+                if rows_ub > vocab_lib.MAX_ROWS:
+                    seen = int(state.rows_seen)
+                    if seen + cap > vocab_lib.MAX_ROWS:
+                        raise OverflowError(
+                            f"loop ① stream exceeds the int32 position ceiling: "
+                            f"{seen} rows seen + up to {cap} more > "
+                            f"{vocab_lib.MAX_ROWS}"
+                        )
+                    rows_ub = seen + cap
+                rows, nbytes = self._chunk_size(chunk)
+                n_chunks, n_rows, n_bytes = n_chunks + 1, n_rows + rows, n_bytes + nbytes
+                if not spans:
+                    state = self.vocab_step(state, chunk)
+                    continue
+                with obs.span("loop1/chunk", **self._vocab_span_labels):
+                    if split:
+                        with obs.span("decode"):
+                            batch = self._as_batch(chunk)
+                        with obs.span("vocab_update", route=self.compiled.vocab_route):
+                            state = self.compiled.vocab_step(state, batch)
+                    else:
+                        state = self.vocab_step(state, chunk)
+        finally:
+            self._count("loop1", n_chunks, n_rows, n_bytes)
         return state
 
     def build_vocab_stream(self, chunks: Iterable) -> vocab_lib.Vocabulary:
@@ -277,9 +377,11 @@ class PiperPipeline:
     def build_vocab_scan(self, stacked_chunks) -> vocab_lib.Vocabulary:
         """Loop ① over chunks stacked on a leading axis."""
         state = self.init_state()
-        for chunk in self._unstack(stacked_chunks):
-            state = self.vocab_step(state, chunk)
-        return vocab_lib.finalize(state)
+        with obs.span("loop1/scan", **self._vocab_span_labels):
+            for chunk in self._unstack(stacked_chunks):
+                state = self.vocab_step(state, chunk)
+        with obs.span("vocab/finalize"):
+            return vocab_lib.finalize(state)
 
     # ------------------------------------------------------------------ #
     # Loop ② — ApplyVocab + dense transforms
@@ -302,9 +404,18 @@ class PiperPipeline:
     def transform_stream(
         self, vocabulary: vocab_lib.Vocabulary, chunks: Iterable
     ) -> Iterator[schema_lib.ProcessedBatch]:
+        """Loop ② over a host iterator, one output a chunk. Spans (while
+        the tracer is on) and counters as in :meth:`build_state_stream`."""
         step = self.frozen_transform(vocabulary)
-        for chunk in chunks:
-            yield step(chunk)
+        spans = obs.enabled() or self._stage_split(self._bytes_xform)
+        n_chunks = n_rows = n_bytes = 0
+        try:
+            for chunk in chunks:
+                rows, nbytes = self._chunk_size(chunk)
+                n_chunks, n_rows, n_bytes = n_chunks + 1, n_rows + rows, n_bytes + nbytes
+                yield step.run(chunk) if spans else self.transform_chunk(vocabulary, chunk)
+        finally:
+            self._count("loop2", n_chunks, n_rows, n_bytes)
 
     def transform_scan(
         self, vocabulary: vocab_lib.Vocabulary, stacked_chunks
@@ -330,7 +441,8 @@ class PiperPipeline:
 
     def run_scan(self, stacked_chunks) -> schema_lib.ProcessedBatch:
         vocabulary = self.build_vocab_scan(stacked_chunks)
-        return self.transform_scan(vocabulary, stacked_chunks)
+        with obs.span("loop2/scan", **self._xform_span_labels):
+            return self.transform_scan(vocabulary, stacked_chunks)
 
 
 class FrozenVocabTransform:
@@ -376,7 +488,22 @@ class FrozenVocabTransform:
         self._vocab = vocabulary
 
     def __call__(self, chunk) -> schema_lib.ProcessedBatch:
-        return self._pipe.transform_chunk(self._vocab, chunk)
+        pipe = self._pipe
+        rows, nbytes = pipe._chunk_size(chunk)
+        pipe._count("loop2", 1, rows, nbytes)
+        return self.run(chunk)
+
+    def run(self, chunk) -> schema_lib.ProcessedBatch:
+        """One chunk inside its ``loop2/chunk`` span, uncounted (a loop
+        counts its chunks once a call)."""
+        pipe = self._pipe
+        with obs.span("loop2/chunk", **pipe._xform_span_labels):
+            if pipe._stage_split(pipe._bytes_xform):
+                with obs.span("decode"):
+                    batch = pipe._as_batch(chunk)
+                with obs.span("transform", route=pipe.compiled.xform_route):
+                    return pipe.compiled.transform(self._vocab, batch)
+            return pipe.transform_chunk(self._vocab, chunk)
 
 
 def flatten_processed(out: schema_lib.ProcessedBatch) -> schema_lib.ProcessedBatch:

@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libraries: dict[str, ctypes.CDLL] = {}
 
 
@@ -142,7 +143,8 @@ class Kernel:
         if err != 0:
             msg = library(self.source).error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
-        self.launches += 1
+        with _count_lock:  # host threads may launch at once
+            self.launches += 1
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None, device=None) -> None:

@@ -10,18 +10,29 @@ never share an entry, so each entry needs no fill between calls:
   to 0.
 - :func:`scan_call` — the look-back scratch of the kernels on
   csrc/decode_tiles.cuh (``decode_utf8.cu``, ``fused_decode_xform.cu`` and
-  ``fused_decode_vocab.cu``) and the call's epoch, which the kernel writes
-  into every status word. A call of any of them takes the next epoch. A
+  ``fused_decode_vocab.cu``), whose ``next_epoch`` gives the call's epoch,
+  which the kernel writes into every status word. A call of any of them
+  takes the next epoch. A
   CUDA graph would replay one epoch forever, so all three refuse to be
   captured.
 - :func:`pending` — the pending list of ``fused_decode_vocab.cu``: its
   counts, which the tile that finishes last puts back to 0, and the cells
   that the kernel's tiles could not yet scatter.
+
+Several host threads may launch at once (the streaming service's loop
+thread and the callers of its ``absorb``). Each entry is made (or, when it
+is missing or too small, looked up again) under one lock, and a scan's caller takes its epoch and launches under its
+scratch's own lock (``with scratch.lock:``), so two threads on one stream
+can neither share an epoch nor launch out of epoch order. :func:`made_here`
+counts the entries the calling thread has made or regrown: device memory
+allocated on a call's path, which the streaming scheduler counts with its
+batches' input shapes (``MicroBatchScheduler.compile_cache_size``).
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
@@ -30,15 +41,31 @@ from repro_torch.kernels import _build
 # The high half of a status word holds epoch << 2 | flag.
 EPOCH_LIMIT = 1 << 30
 
+Key = tuple[torch.device, int]
 
-def _key(device: torch.device, stream: int) -> tuple[torch.device, int]:
+_lock = threading.Lock()  # guards the making of every entry below
+_here = threading.local()  # .made: entries made or regrown by this thread
+
+
+def _key(device: torch.device, stream: int) -> Key:
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device, stream
 
 
-_tallies: dict[tuple[torch.device, int], torch.Tensor] = {}
+def _made() -> None:
+    """Count one entry made or regrown by the calling thread."""
+    _here.made = made_here() + 1
+
+
+def made_here() -> int:
+    """Entries (tally, pending list, look-back scratch) the calling thread
+    has made or regrown so far, for launches on any stream."""
+    return getattr(_here, "made", 0)
+
+
+_tallies: dict[Key, torch.Tensor] = {}
 
 
 def tally(device: torch.device, stream: int) -> torch.Tensor:
@@ -46,13 +73,18 @@ def tally(device: torch.device, stream: int) -> torch.Tensor:
     of ``device``: made zeroed at first use, then kept, and left at 0 by
     every launch."""
     key = _key(device, stream)
-    t = _tallies.get(key)
-    if t is None:
-        t = _tallies[key] = torch.zeros(1, dtype=torch.int64, device=key[0])
-    return t
+    t = _tallies.get(key)  # entries are replaced, never changed: no lock to read
+    if t is not None:
+        return t
+    with _lock:
+        t = _tallies.get(key)
+        if t is None:
+            t = _tallies[key] = torch.zeros(1, dtype=torch.int64, device=key[0])
+            _made()
+        return t
 
 
-_pendings: dict[tuple[torch.device, int], torch.Tensor] = {}
+_pendings: dict[Key, torch.Tensor] = {}
 
 
 def pending(device: torch.device, stream: int, ints: int) -> torch.Tensor:
@@ -62,32 +94,40 @@ def pending(device: torch.device, stream: int, ints: int) -> torch.Tensor:
     every launch."""
     key = _key(device, stream)
     t = _pendings.get(key)
-    if t is None or t.numel() < ints:
-        t = _pendings[key] = torch.zeros(ints, dtype=torch.int32, device=key[0])
-    return t
+    if t is not None and t.numel() >= ints:
+        return t
+    with _lock:
+        t = _pendings.get(key)
+        if t is None or t.numel() < ints:
+            t = _pendings[key] = torch.zeros(ints, dtype=torch.int32, device=key[0])
+            _made()
+        return t
 
 
 class ScanScratch:
     """The look-back scratch of the launches on one stream: int32 words,
-    zeroed when made, and the epoch of the last call."""
+    zeroed when made, the epoch of the last call, and the lock under which
+    a call takes its epoch and launches."""
 
     def __init__(self, ints: int, device: torch.device):
         self.words = torch.zeros(ints, dtype=torch.int32, device=device)
         self.epoch = 0
+        self.lock = threading.RLock()
 
     def next_epoch(self) -> int:
         """The next call's epoch, in [1, EPOCH_LIMIT). When the epochs run
         out, the words are zeroed (on the current stream, so after every
         launch that used them) and the count starts again at 1: a word of
         an earlier call could otherwise carry a reused epoch."""
-        self.epoch += 1
-        if self.epoch >= EPOCH_LIMIT:
-            self.words.zero_()
-            self.epoch = 1
-        return self.epoch
+        with self.lock:
+            self.epoch += 1
+            if self.epoch >= EPOCH_LIMIT:
+                self.words.zero_()
+                self.epoch = 1
+            return self.epoch
 
 
-_scratches: dict[tuple[torch.device, int], ScanScratch] = {}
+_scratches: dict[Key, ScanScratch] = {}
 
 
 def scan_scratch(device: torch.device, stream: int, ints: int) -> ScanScratch:
@@ -97,9 +137,14 @@ def scan_scratch(device: torch.device, stream: int, ints: int) -> ScanScratch:
     tiles than it holds."""
     key = _key(device, stream)
     s = _scratches.get(key)
-    if s is None or s.words.numel() < ints:
-        s = _scratches[key] = ScanScratch(ints, key[0])
-    return s
+    if s is not None and s.words.numel() >= ints:
+        return s
+    with _lock:
+        s = _scratches.get(key)
+        if s is None or s.words.numel() < ints:
+            s = _scratches[key] = ScanScratch(ints, key[0])
+            _made()
+        return s
 
 
 @functools.cache
@@ -116,15 +161,16 @@ def scratch_ints(n: int) -> int:
     return _scratch_ints_fn()(n)
 
 
-def scan_call(device: torch.device, n: int, what: str) -> tuple[ScanScratch, int]:
-    """The look-back scratch and the epoch of one launch on an ``n``-byte
-    chunk on ``device``'s current stream. Raises under CUDA graph capture:
-    a replay would reuse the epoch."""
+def scan_call(device: torch.device, n: int, what: str) -> ScanScratch:
+    """The look-back scratch of one launch on an ``n``-byte chunk on
+    ``device``'s current stream. The caller takes the epoch and launches
+    under ``scratch.lock``, so launches on one stream take their epochs in
+    launch order. Raises under CUDA graph capture: a replay would reuse
+    the epoch."""
     if torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
             f"{what} cannot be captured in a CUDA graph: each call needs a new "
             "epoch for its look-back scratch, and a replay would reuse one"
         )
     stream = torch.cuda.current_stream(device).cuda_stream
-    scratch = scan_scratch(device, stream, scratch_ints(n))
-    return scratch, scratch.next_epoch()
+    return scan_scratch(device, stream, scratch_ints(n))

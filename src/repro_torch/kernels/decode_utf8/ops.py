@@ -13,7 +13,8 @@ tiles (csrc/decode_tiles.cuh on csrc/lookback.cuh), whose status words
 must read "not yet published" at the start of every call without a fill.
 It takes the per-(device, stream) scratch and a new epoch from
 ``_scratch.scan_call``, which the bytes-in loop-② kernel
-(``fused_decode_xform``) shares; so a CUDA graph capture raises. No block
+(``fused_decode_xform``) shares, and launches under that scratch's lock;
+so a CUDA graph capture raises. No block
 of a launch waits on one that has not started, so decodes on two streams
 may run at once at any chunk size.
 """
@@ -84,14 +85,15 @@ def decode(
     if max_rows * n_fields >= 2**31:
         raise ValueError(f"{max_rows} x {n_fields} cells; the kernel takes fewer than 2**31")
     dev = byte_buf.device
-    scratch, epoch = scan_call(dev, n, "decode")
     label = torch.empty(max_rows, dtype=torch.int32, device=dev)
     dense = torch.empty((max_rows, n_dense), dtype=torch.int32, device=dev)
     sparse = torch.empty((max_rows, n_sparse), dtype=torch.int32, device=dev)
     valid = torch.empty(max_rows, dtype=torch.bool, device=dev)
     p = _build.ptr
-    KERNEL.launch(
-        dev, p(byte_buf), n, max_rows, n_fields, 1 + n_dense, n_dense, n_sparse,
-        p(scratch.words), epoch, p(label), p(dense), p(sparse), p(valid),
-    )
+    scratch = scan_call(dev, n, "decode")
+    with scratch.lock:
+        KERNEL.launch(
+            dev, p(byte_buf), n, max_rows, n_fields, 1 + n_dense, n_dense, n_sparse,
+            p(scratch.words), scratch.next_epoch(), p(label), p(dense), p(sparse), p(valid),
+        )
     return label, dense, sparse, valid

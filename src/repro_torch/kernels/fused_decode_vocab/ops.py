@@ -74,15 +74,17 @@ def fused_decode_update(
     _build.check(state.rows_seen, "rows_seen", torch.int32, (), dev)
     if max_rows * n_fields >= 2**31:
         raise ValueError(f"{max_rows} x {n_fields} cells; the kernel takes fewer than 2**31")
-    scratch, epoch = _scratch.scan_call(dev, n, "fused_decode_genvocab")
     # the 64-bit counts and a word of padding, then (cell, slot) of each
     # sparse cell the kernel may have to hold back (csrc/fused_decode_vocab.cu)
     pending = _scratch.pending(
         dev, torch.cuda.current_stream(dev).cuda_stream, 4 + 2 * max_rows * n_cols)
     rows_seen = torch.empty((), dtype=torch.int32, device=dev)
     p = _build.ptr
-    KERNEL.launch(
-        dev, p(byte_buf), n, max_rows, n_fields, hex_start, vocab_range, p(scratch.words), epoch,
-        p(pending), p(state.first_pos), p(state.rows_seen), p(rows_seen),
-    )
+    scratch = _scratch.scan_call(dev, n, "fused_decode_genvocab")
+    with scratch.lock:
+        KERNEL.launch(
+            dev, p(byte_buf), n, max_rows, n_fields, hex_start, vocab_range, p(scratch.words),
+            scratch.next_epoch(), p(pending), p(state.first_pos), p(state.rows_seen),
+            p(rows_seen),
+        )
     return vocab_lib.VocabState(state.first_pos, rows_seen)

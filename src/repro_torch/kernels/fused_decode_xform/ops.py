@@ -69,14 +69,15 @@ def fused_decode_transform(
     _build.check(vocab.table, "table", torch.int32, (n_sparse, vocab_range), dev)
     if max_rows * n_fields >= 2**31:
         raise ValueError(f"{max_rows} x {n_fields} cells; the kernel takes fewer than 2**31")
-    scratch, epoch = scan_call(dev, n, "fused_decode_transform")
     label = torch.empty(max_rows, dtype=torch.int32, device=dev)
     dense = torch.empty((max_rows, n_dense), dtype=torch.float32, device=dev)
     ids = torch.empty((max_rows, n_sparse), dtype=torch.int32, device=dev)
     valid = torch.empty(max_rows, dtype=torch.bool, device=dev)
     p = _build.ptr
-    KERNEL.launch(
-        dev, p(byte_buf), n, max_rows, n_fields, hex_start, vocab_range, p(scratch.words), epoch,
-        p(vocab.table), p(label), p(dense), p(ids), p(valid),
-    )
+    scratch = scan_call(dev, n, "fused_decode_transform")
+    with scratch.lock:
+        KERNEL.launch(
+            dev, p(byte_buf), n, max_rows, n_fields, hex_start, vocab_range, p(scratch.words),
+            scratch.next_epoch(), p(vocab.table), p(label), p(dense), p(ids), p(valid),
+        )
     return label, dense, ids, valid

@@ -1,14 +1,20 @@
 """Serving launcher: continuous-batching demo on a smoke config.
 
-Counterpart of the LM half of ``repro/launch/serve.py``:
+Counterpart of ``repro/launch/serve.py``:
 
     python -m repro_torch.launch.serve --arch gemma-2b --requests 8
     python -m repro_torch.launch.serve --arch gemma-2b --device cpu
 
-It runs on the card unless ``--device cpu`` is given, and raises without
+``--piper-stream`` runs the *preprocessing* serving demo instead: the
+online streaming service (``repro_torch.stream``) over a synthetic Criteo
+stream — offline loop ① freezes the vocabulary, then randomized-size
+requests flow through the bucketed micro-batch scheduler and the
+latency/throughput metrics are printed:
+
+    python -m repro_torch.launch.serve --piper-stream --rows 4096
+
+Both run on the card unless ``--device cpu`` is given, and raise without
 one.
-The reference's ``--piper-stream`` demo comes with the streaming service
-(ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -24,7 +30,49 @@ from repro_torch.models import lm as lm_lib
 from repro_torch.serve import engine as engine_lib
 
 
-def main(argv=None) -> list:
+def run_piper_stream(args) -> dict:
+    """Streaming preprocessing service demo (Piper-as-a-service): the
+    reference's dataset, bucket ladder and request sizes."""
+    from repro_torch.core import pipeline as pipeline_lib
+    from repro_torch.data import synth
+    from repro_torch.stream import StreamingPreprocessService
+
+    cfg = synth.SynthConfig(rows=args.rows, seed=0)
+    buf, _ = synth.make_dataset(cfg)
+    pc = pipeline_lib.PipelineConfig(schema=cfg.schema, device=args.device)
+    pipe = pipeline_lib.PiperPipeline(pc)
+    state = pipe.build_state_stream(synth.chunk_stream(buf, 1 << 14))
+
+    rng = np.random.default_rng(0)
+    buckets = (256, 1024, 4096)
+    sizes, left = [], args.rows
+    while left > 0:
+        n = int(min(rng.integers(1, 512), left))
+        sizes.append(n)
+        left -= n
+    svc = StreamingPreprocessService(pc, state, bucket_rows=buckets, queue_depth=32).start()
+    try:
+        # warm every bucket so the printed latencies are steady-state
+        svc.warmup(
+            next(synth.request_payloads(buf, None, [min(c, args.rows)]))
+            for c in buckets
+        )
+        for p in synth.request_payloads(buf, None, sizes):
+            svc.submit(p)
+        svc.drain()
+        snap = svc.metrics.snapshot()
+    finally:
+        svc.stop()
+    print(
+        f"streamed {snap['requests']} requests / {snap['rows']} rows in "
+        f"{snap['wall_s']:.2f}s — {snap['rows_per_s']:.0f} rows/s, "
+        f"p50={snap['p50_ms']}ms p95={snap['p95_ms']}ms p99={snap['p99_ms']}ms "
+        f"({svc.compile_cache_size()} compiled shapes, on {pc.torch_device})"
+    )
+    return snap
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="gemma-2b", choices=configs.ARCH_IDS)
     ap.add_argument("--requests", type=int, default=8)
@@ -33,7 +81,16 @@ def main(argv=None) -> list:
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--cache-len", type=int, default=64)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument(
+        "--piper-stream",
+        action="store_true",
+        help="run the streaming preprocessing service demo instead of LM serving",
+    )
+    ap.add_argument("--rows", type=int, default=4096, help="--piper-stream dataset size")
     args = ap.parse_args(argv)
+
+    if args.piper_stream:
+        return run_piper_stream(args)
 
     cfg = configs.get_smoke(args.arch)
     model = lm_lib.LM(cfg, device=args.device)

@@ -10,6 +10,9 @@ the repository root:
 chip_smoke.py runs the same comparisons at the main path's full shapes.
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1456,3 +1459,192 @@ def test_lm_smoke_prefill_on_card_matches_cpu(cuda):
     assert fops.KERNEL.launches == cfg.n_layers
     scale = float(want.abs().max())
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+# --------------------------------------------------------------------- #
+# host threads and the streaming service's streams
+# --------------------------------------------------------------------- #
+
+def _decode_in_thread(chunks, stream, out, errors):
+    try:
+        ctx = torch.cuda.stream(stream) if stream is not None else torch.cuda.device(0)
+        with ctx:
+            for _ in range(8):
+                for c in chunks:
+                    out.append((c, dops.decode(c, _CRITEO_HEX, **_decode_kw(256))))
+    except Exception as e:  # noqa: BLE001 — asserted below
+        errors.append(e)
+
+
+@pytest.mark.parametrize("streams", [1, 2], ids=["one_stream", "two_streams"])
+def test_decodes_from_two_threads_equal_plain(cuda, streams):
+    """Two host threads decode at once, on one stream (they share its
+    look-back scratch, so each epoch must be taken and launched under its
+    lock) and then on a stream each: every result is the plain version's."""
+    chunks = [torch.from_numpy(_EDGE_CHUNKS[n][0]).to(cuda)
+              for n in ("truncated_row", "long_field_over_two_tiles", "ends_on_16384")]
+    side = [torch.cuda.Stream(cuda) for _ in range(streams)]
+    for s in side:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    outs, errors = [[], []], []
+    threads = [threading.Thread(target=_decode_in_thread,
+                                args=(chunks, side[i % streams], outs[i], errors))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors
+    torch.cuda.synchronize()
+    for per_thread in outs:
+        assert len(per_thread) == 8 * len(chunks)
+        for c, got in per_thread:
+            for g, w in zip(got, dref.decode_bytes(c, _CRITEO_HEX, **_decode_kw(256))):
+                assert torch.equal(g, w)
+
+
+def _stream_world(cuda, fmt="utf8", buckets=(64,)):
+    """A scheduler on the card over the 400-row synth data, its requests
+    and the offline table of their rows."""
+    from repro_torch.stream import make_request, scheduler
+
+    buf, table = synth.make_dataset(synth.SynthConfig(rows=400, seed=42))
+    cfg = P.PipelineConfig(input_format=fmt, device="cuda")
+    chunks = list(synth.chunk_stream(buf, 1 << 16)) if fmt == "utf8" else [
+        {k: table[k] for k in ("label", "dense", "sparse")}]
+    pipe = P.PiperPipeline(cfg)
+    vocab = tvocab.finalize(pipe.build_state_stream(chunks))
+    outs = list(pipe.transform_stream(vocab, chunks))
+    want = {f: torch.cat([getattr(o, f)[o.valid] for o in outs]).cpu().numpy()
+            for f in ("label", "dense", "sparse")}
+    sched = scheduler.MicroBatchScheduler(cfg, vocab, bucket_rows=buckets)
+    payloads = list(synth.request_payloads(buf, table, [50] * 8, input_format=fmt))
+    reqs = [make_request(p, cfg) for p in payloads]
+    return sched, reqs, want
+
+
+def _assert_rows(got, want, row0):
+    for f in ("label", "sparse"):
+        np.testing.assert_array_equal(got[f], want[f][row0:row0 + got[f].shape[0]])
+    np.testing.assert_allclose(got["dense"], want["dense"][row0:row0 + got["dense"].shape[0]],
+                               rtol=1e-6, atol=0)
+
+
+SLEEP_CYCLES = 300_000_000  # ~0.15 s of device time at the H100's clock
+
+
+def test_pinned_slot_is_not_refilled_before_its_copy(cuda):
+    """With batch 1's copy in held back behind a long kernel, filling its
+    staging slot again (batch 3) waits for the event behind that copy, so
+    batch 1 still serves its own rows."""
+    sched, reqs, want = _stream_world(cuda)
+    bucket = sched.buckets[0]
+    assert len(bucket.slots) == 2 and all(s.chunk.is_pinned() for s in bucket.slots)
+    stream = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        b1 = sched.assemble([reqs[0]])
+        o1 = sched.dispatch(b1)
+        b2 = sched.assemble([reqs[1]])
+        o2 = sched.dispatch(b2)
+        assert not b1.slot.copied.query()  # the copy in is still queued
+        t0 = time.perf_counter()
+        b3 = sched.assemble([reqs[2]])  # batch 1's slot again
+        waited = time.perf_counter() - t0
+        assert b3.slot is b1.slot and waited > 0.02
+        o3 = sched.dispatch(b3)
+        for i, (b, o) in enumerate(((b1, o1), (b2, o2), (b3, o3))):
+            _assert_rows(sched.route(b, o)[0], want, 50 * i)
+
+
+def test_route_does_not_wait_for_the_next_batch(cuda):
+    """Batch 2 queued behind a long kernel: routing batch 1 returns before
+    it, on batch 1's own event."""
+    sched, reqs, want = _stream_world(cuda)
+    stream = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(stream):
+        b1 = sched.assemble([reqs[0]])
+        o1 = sched.dispatch(b1)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        b2 = sched.assemble([reqs[1]])
+        o2 = sched.dispatch(b2)
+        t0 = time.perf_counter()
+        got = sched.route(b1, o1)[0]
+        took = time.perf_counter() - t0
+        assert not b2.returned.query(), "batch 2 finished: the test shows nothing"
+        assert took < 0.05
+        _assert_rows(got, want, 0)
+        _assert_rows(sched.route(b2, o2)[0], want, 50)
+
+
+@pytest.mark.parametrize("fmt", ["utf8", "binary"])
+def test_service_results_stay_valid_after_later_batches(cuda, fmt):
+    """Each request owns its result: the batches served after it through
+    the same pinned slots leave it unchanged."""
+    from repro_torch.stream import StreamingPreprocessService
+
+    buf, table = synth.make_dataset(synth.SynthConfig(rows=400, seed=42))
+    cfg = P.PipelineConfig(input_format=fmt, device="cuda")
+    chunks = list(synth.chunk_stream(buf, 1 << 16)) if fmt == "utf8" else [
+        {k: table[k] for k in ("label", "dense", "sparse")}]
+    state = P.PiperPipeline(cfg).build_state_stream(chunks)
+    payloads = list(synth.request_payloads(buf, table, [40] * 10, input_format=fmt))
+    with StreamingPreprocessService(cfg, state, bucket_rows=(64,)) as svc:
+        first = svc.submit(payloads[0]).result(timeout=120)
+        kept = {k: v.copy() for k, v in first.items()}
+        for p in payloads[1:] * 4:
+            svc.submit(p)
+        svc.drain(timeout=120)
+    for k, v in kept.items():
+        np.testing.assert_array_equal(first[k], v)
+
+
+def test_absorb_on_another_stream_is_merged_after_its_kernels(cuda):
+    """absorb's kernels held back behind a long kernel on the caller's
+    stream: the loop stream's merge waits for them (the event of
+    refresh_vocab), so the merged state is offline loop ① over the rows."""
+    from repro_torch.stream import StreamingPreprocessService
+
+    buf, table = synth.make_dataset(synth.SynthConfig(rows=400, seed=42))
+    spans = synth.row_spans(buf)
+    cfg = P.PipelineConfig(device="cuda", max_rows_per_chunk=256, chunk_bytes=1 << 16)
+    pipe = P.PiperPipeline(cfg)
+    first = buf[: spans[199, 1]]
+    second = buf[spans[200, 0]: spans[399, 1]]
+    state = pipe.build_state_stream(synth.chunk_stream(first, 1 << 16))
+    offline = pipe.build_state_stream(synth.chunk_stream(buf, 1 << 16))
+    errors = []
+    with StreamingPreprocessService(cfg, tvocab.VocabState(state.first_pos.clone(),
+                                                            state.rows_seen.clone()),
+                                    bucket_rows=(64,)) as svc:
+        def absorb():
+            try:
+                with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                    torch.cuda._sleep(SLEEP_CYCLES)
+                    svc.absorb(second, row_offset=200)
+            except Exception as e:  # noqa: BLE001 — asserted below
+                errors.append(e)
+
+        t = threading.Thread(target=absorb)
+        t.start()
+        t.join(timeout=120)
+        assert not t.is_alive() and not errors
+        applied = svc.registry.counter("stream.vocab_apply_total")
+        deadline = time.monotonic() + 120
+        while applied.value < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        merged = svc.vocab_state
+        assert torch.equal(merged.first_pos, offline.first_pos)
+        assert int(merged.rows_seen) == int(offline.rows_seen) == 400
+        assert svc.last_swap_seconds() > 0
+
+
+def test_spans_are_nvtx_ranges_on_the_card(cuda):
+    from repro_torch.obs import trace
+
+    tracer = trace.Tracer()
+    assert tracer.device == "cuda" and tracer.nvtx
+    with tracer.span("stream/dispatch"):
+        torch.ones(4, device=cuda).sum()
+    assert [e["name"] for e in tracer.events()] == ["stream/dispatch"]

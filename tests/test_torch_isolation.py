@@ -58,6 +58,23 @@ req = engine.Request(prompt=[1, 2, 3], max_new_tokens=4)
 eng.submit(req)
 eng.run_until_drained()
 assert len(req.generated) == 4
+# the streaming service with its observability and chunk cache, and the
+# --piper-stream launcher
+from repro_torch import obs
+from repro_torch.data import chunk_cache
+from repro_torch.launch import serve as serve_launcher
+from repro_torch.stream import StreamingPreprocessService
+
+pc = P.PipelineConfig(chunk_bytes=8192, max_rows_per_chunk=64, device="cpu")
+state = P.PiperPipeline(pc).build_state_stream(synth.chunk_stream(buf, 8192))
+with StreamingPreprocessService(pc, state, bucket_rows=(16, 64),
+                                cache=chunk_cache.ChunkCache(1 << 20)) as svc:
+    handles = [svc.submit(p) for p in synth.request_payloads(buf, None, [5, 20, 25])]
+    svc.drain(timeout=120)
+    assert sum(h.result(timeout=120)["label"].shape[0] for h in handles) == 50
+assert obs.validate_trace(obs.tracer().to_chrome()) == []
+snap = serve_launcher.main(["--piper-stream", "--rows", "300", "--device", "cpu"])
+assert snap["rows"] == 300
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
 """
@@ -71,8 +88,9 @@ def _env():
 
 def test_runs_without_jax_or_repro_in_sys_modules():
     """Piper's two loops, a DLRM train step and a checkpoint round trip, an
-    LM prefill and a served request, in a process that never imports JAX or
-    the JAX package."""
+    LM prefill and a served request, the streaming service with its chunk
+    cache and the --piper-stream launcher, in a process that never imports
+    JAX or the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _RUN_PORT_ONLY], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=300, check=True,
@@ -129,6 +147,22 @@ def test_lm_entry_points_default_to_the_card(monkeypatch):
         interop.lm_params_from_numpy(tree, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "gemma-2b", "--requests", "1"])
+
+
+def test_streaming_service_defaults_to_the_card(monkeypatch):
+    """The streaming service (through its config) and --piper-stream run on
+    the card unless told otherwise, and raise without one."""
+    from repro_torch.core import pipeline as P
+    from repro_torch.core import vocab
+    from repro_torch.launch import serve
+    from repro_torch.stream import StreamingPreprocessService
+
+    state = vocab.VocabState.init(26, 5000, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingPreprocessService(P.PipelineConfig(), state)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--piper-stream", "--rows", "64"])
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():
