@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,golden,main,stream,train,serve] [--out results.json]
+    python3 chip_smoke.py [--phases kernels,golden,main,stream,train,serve,e2e] [--out results.json]
     python3 chip_smoke.py --rehearse      # plumbing only, on the CPU
 
 Phases, each of which passes or ends the run with a non-zero exit:
@@ -38,7 +38,7 @@ Phases, each of which passes or ends the run with a non-zero exit:
   5. train — Piper → DLRM training at CONFIG_5K and CONFIG_1M (full width,
      batches of 4096 rows, AdamW with global-norm clipping, TF32 off):
      run_stream over the utf8 feed with the default hints, its valid rows
-     through TrainInputPipeline, then 50 (5K) or 20 (1M) train steps with
+     through input_pipeline.stream_batches, then 50 (5K) or 20 (1M) train steps with
      the loss read one step lagged. Every step must launch exactly one
      embedding_gather and one embedding_gather_backward; the loss must be
      finite and fall (last 10 steps against the first 10); one checkpoint
@@ -85,6 +85,25 @@ Phases, each of which passes or ends the run with a non-zero exit:
      counter, the device's busy share of a profiled window, device ms of
      each route's kernels and copies at each bucket, and the swap's and
      the vocab digest's seconds.
+  8. e2e — Piper → DLRM training fed by the streaming service, through
+     launch/train_dlrm_e2e's functions (prepare, start_service, train):
+     loop ① offline over the train phase's utf8 feed, then a service with
+     one bucket of 4096 rows serving payloads of 4096 consecutive rows to
+     TrainInputPipeline, 50 (5K) or 20 (1M) train steps at full width. At
+     5K four runs: overlap off, overlap on, overlap on with a fresh
+     ChunkCache, overlap off on the same cache, now warm; at 1M the first
+     two. All runs of a range must end in the same parameters, bit for bit
+     (torch.equal on the card), and at 5K also those of the same steps fed
+     by run_stream (and the train phase's, when it ran); the warm run must
+     dispatch no micro-batch and launch no decode_scan; every batch must be
+     on the card; each run must launch one decode_scan and one
+     fused_transform per service batch and one embedding_gather and its
+     gradient per step. The engine on the card must equal the row-wise CPU
+     baseline (core/baseline.py) over the first 2^13 rows of the utf8 feed
+     and of the binary table. Prints per run ms per step, rows/s, the e2e
+     and the service's stall splits, cache hits and misses and launches
+     per step by kernel; the H2D staging time per batch; the baseline's
+     seconds.
 
 The last lines are the {"kernels": [...]} summary, the nvidia-smi name
 and power limit, and {"ok": true, "device": {...}}. Without a CUDA device,
@@ -98,6 +117,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -167,6 +187,22 @@ STREAM_ROUTES = {
     "binary": ("binary", {}, ("fused_transform",)),
 }
 STREAM_WAIT_S = 300  # the bound on every wait of the stream phase
+# The e2e phase: Piper → DLRM training fed by the streaming service over the
+# train phase's utf8 feed, payloads (and the one bucket) of TRAIN_BATCH rows,
+# TRAIN_STEPS steps (so the train phase's weights compare); runs per range as (name, overlap, chunk cache: None, "fresh" or "warm").
+E2E_RUNS = {"5K": (("a_overlap_off", False, None), ("b_overlap_on", True, None),
+                   ("c_overlap_on_cold_cache", True, "fresh"),
+                   ("d_overlap_off_warm_cache", False, "warm")),
+            "1M": (("a_overlap_off", False, None), ("b_overlap_on", True, None))}
+E2E_CACHE_BYTES = 256 << 20
+E2E_WARMUP_STEPS = 5  # an unrecorded pass before the runs of a range
+E2E_WAIT_S = 300  # the bound on every drain of the e2e phase
+# The e2e path's kernels: loop ① offline, loop ② in the service, the DLRM
+E2E_KERNELS = ("decode_scan", "fused_genvocab", "fused_transform", "embedding_gather",
+               "embedding_gather_backward")
+# The oracle check: the engine on the card against the row-wise CPU
+# baseline over the first rows of the utf8 feed and of the binary table.
+ORACLE_ROWS = {"card": 1 << 13, "rehearsal": 500}
 RANGES = {"5K": 5000, "1M": 1_000_000}
 # The train phase: batch rows and steps per range; a CPU rehearsal trains
 # smaller batches and stands a 20000-row table in for the 1M one.
@@ -442,6 +478,7 @@ class Smoke:
         self.dev = torch.device("cpu" if rehearse else "cuda")
         self.floor_ms = None  # the launch floor, once the kernels phase measured it
         self.smi = "cpu rehearsal: no card"  # nvidia-smi's name and power limit
+        self.train_params = {}  # range → the train phase's final parameters (5K)
 
     # -- measurement ---------------------------------------------------- #
     def sync(self) -> None:
@@ -1987,8 +2024,7 @@ class Smoke:
 
         # the train loop: the loss read one step lagged, so the host queues
         # step i while the device finishes step i-1
-        it = iter(input_pipeline.TrainInputPipeline(outs, batch_rows=batch_rows,
-                                                    n_steps=n_steps))
+        it = input_pipeline.stream_batches(outs, batch_rows=batch_rows, n_steps=n_steps)
         pending = None
         mark()
         for _ in range(n_steps):
@@ -2025,6 +2061,8 @@ class Smoke:
         # one checkpoint, Piper's VocabState under extra, restored bit for bit
         final = [t.detach().clone() for t in leaves(model.params_tree()) + leaves(opt)] \
             if tag == "5K" else None
+        if final is not None:  # the e2e phase's run_stream-fed weights
+            self.train_params[tag] = final[:len(leaves(model.params_tree()))]
         root = ROOT / "build" / "train_ckpt" / tag
         shutil.rmtree(root, ignore_errors=True)
         tree = {"params": model.params_tree(), "opt": opt, "extra": {"vocab": state}}
@@ -2154,6 +2192,236 @@ class Smoke:
         result["cpu_agreement"] = agreement
         expect(not failures, "train 5K: the card differs from the CPU beyond tolerance: "
                + "; ".join(failures))
+
+    # -- phase 8 -------------------------------------------------------- #
+    def e2e(self, data, tag: str) -> dict:
+        """Piper → DLRM training fed by the streaming service at one range,
+        through launch/train_dlrm_e2e's functions: overlap off and on (and
+        at 5K a cold, then warm chunk cache), each run's launches counted
+        on its own. Returns kernel → launches over the phase's path. Prints
+        what it measured, also when a check fails."""
+        result = {"phase": "e2e", "range": tag, "card": self.smi}
+        try:
+            return self._e2e(data, tag, result)
+        finally:
+            emit(result)
+
+    def _e2e(self, data, tag: str, result: dict) -> dict:
+        torch, dev = self.torch, self.dev
+        from repro_torch.configs import piper_dlrm
+        from repro_torch.data import chunk_cache
+        from repro_torch.launch import train_dlrm_e2e
+        from repro_torch.train import optimizer
+        from repro_torch.train.tree import leaves
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = {"5K": piper_dlrm.CONFIG_5K, "1M": piper_dlrm.CONFIG_1M}[tag]
+        batch_rows, n_steps = TRAIN_BATCH, TRAIN_STEPS[tag]
+        if self.rehearse:  # the train phase's rehearsal sizes
+            vr = REHEARSAL_RANGES[tag]
+            cfg = dataclasses.replace(
+                cfg, schema=dataclasses.replace(cfg.schema, vocab_range=vr),
+                model=dataclasses.replace(cfg.model, vocab_range=vr))
+            batch_rows, n_steps = REHEARSAL_TRAIN_BATCH, REHEARSAL_TRAIN_STEPS[tag]
+        else:
+            gc.collect()  # an earlier phase's tensors that wait on a reference cycle
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        result.update(config=cfg.name, vocab_range=cfg.model.vocab_range,
+                      batch_rows=batch_rows, steps=n_steps)
+        kernels = counters()
+        launches = dict.fromkeys(kernels, 0)
+
+        def count(into: dict) -> dict:
+            got = {k: v.launches for k, v in kernels.items() if v.launches}
+            for k, v in got.items():
+                into[k] += v
+            return got
+
+        t0 = time.perf_counter()
+        reset_counters(kernels)
+        feed = train_dlrm_e2e.prepare(data["utf8_buf"], cfg.schema, payload_rows=batch_rows,
+                                      device=str(dev))
+        result.update(loop1_s=feed.loop1_s, loop1_launches=count(launches),
+                      payloads=len(feed.payloads), prepare_s=time.perf_counter() - t0)
+        ocfg = optimizer.AdamWConfig()  # the train phase's, so the weights compare
+        runs = result["runs"] = {}
+        first = None  # run a's parameters
+        svc = train_dlrm_e2e.start_service(feed)
+        try:
+            # a short unrecorded pass first: a process's first train steps
+            # carry one-time costs (cuBLAS and autograd set-up, the
+            # allocator's first blocks) that would fall on run a alone
+            train_dlrm_e2e.train(svc, feed, cfg.model, ocfg, steps=E2E_WARMUP_STEPS,
+                                 batch=batch_rows, overlap=False)
+            for name, overlap, cache in E2E_RUNS[tag]:
+                if cache == "fresh":
+                    svc.stop()
+                    svc = train_dlrm_e2e.start_service(
+                        feed, chunk_cache.ChunkCache(capacity_bytes=E2E_CACHE_BYTES))
+                rec = runs[name] = {"overlap": overlap, "cache": cache}
+                svc.drain(timeout=E2E_WAIT_S)  # a quiet service: this run's counts alone
+                reg = svc.registry
+                reg.reset()
+                cached = svc.cache.stats() if svc.cache is not None else None
+                reset_counters(kernels)
+                report, model = train_dlrm_e2e.train(svc, feed, cfg.model, ocfg, steps=n_steps,
+                                                     batch=batch_rows, overlap=overlap)
+                svc.drain(timeout=E2E_WAIT_S)
+                got = count(launches)
+                rec.update({k: report[k] for k in ("wall_s", "ms_per_step", "rows_per_s",
+                                                   "e2e_stall", "e2e_counters")})
+                rec.update(loss_first=report["losses"][0], loss_last=report["losses"][-1],
+                           launches=got, launches_per_step={k: v / n_steps for k, v in got.items()},
+                           service_stall=svc.stall_report(),
+                           service_batches=reg.get("stream.batches_total").value)
+                if cached is not None:
+                    now = svc.cache.stats()
+                    rec["cache_delta"] = {k: now[k] - cached[k]
+                                          for k in ("hits_total", "misses_total")}
+                expect(all(math.isfinite(x) for x in report["losses"]),
+                       f"e2e {tag} {name}: a loss is not finite")
+                if not self.rehearse:
+                    want = {"embedding_gather": n_steps, "embedding_gather_backward": n_steps}
+                    if cache != "warm":
+                        want.update(decode_scan=rec["service_batches"],
+                                    fused_transform=rec["service_batches"])
+                    expect(got == want, f"e2e {tag} {name}: launched {got}, expected {want}")
+                if cache == "warm":
+                    d = rec["cache_delta"]
+                    expect(rec["service_batches"] == 0 and d["misses_total"] == 0
+                           and d["hits_total"] >= n_steps and not got.get("decode_scan"),
+                           f"e2e {tag} {name}: the warm run dispatched ({rec})")
+                params = [p.detach() for p in leaves(model.params_tree())]
+                if first is None:
+                    first = [p.clone() for p in params]
+                else:
+                    for i, (a, b) in enumerate(zip(params, first)):
+                        expect(torch.equal(a, b), f"e2e {tag} {name}: parameter leaf {i} "
+                               "differs from run a's")
+                del model, params
+                if not self.rehearse:
+                    torch.cuda.empty_cache()
+            result["staging"] = self._staging(svc, feed)
+        finally:
+            svc.stop()
+        result["weights_bit_identical"] = list(runs)
+        if tag == "5K":
+            self._e2e_against_run_stream(data, cfg, ocfg, batch_rows, n_steps, first, result)
+            result["oracle"] = self._oracle(data, launches)
+        if not self.rehearse:
+            result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        result["launches"] = {k: v for k, v in launches.items() if v}
+        return launches
+
+    def _e2e_against_run_stream(self, data, cfg, ocfg, batch_rows, n_steps, want,
+                                result: dict) -> None:
+        """The same rows and steps fed by run_stream (stream_batches over the
+        offline engine's output, the train phase's route) from the same seed
+        end in the same weights, bit for bit; so do the train phase's own,
+        when it ran."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.core import pipeline as P
+        from repro_torch.models import dlrm
+        from repro_torch.train import input_pipeline, optimizer, steps
+        from repro_torch.train.tree import leaves
+
+        outs = list(P.PiperPipeline(cfg.pipeline_config(device=str(dev))).run_stream(
+            lambda: iter(data["utf8_chunks"])))
+        model = dlrm.DLRM(cfg.model, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        opt = optimizer.adamw_init(model.params_tree())
+        step = steps.make_tabular_train_step(dlrm.loss, ocfg)
+        for batch in input_pipeline.stream_batches(outs, batch_rows=batch_rows, n_steps=n_steps):
+            step(model, opt, batch)
+        sources = {"run_stream": [p.detach() for p in leaves(model.params_tree())]}
+        if "5K" in self.train_params:
+            sources["train_phase"] = self.train_params["5K"]
+        for what, params in sources.items():
+            for i, (a, b) in enumerate(zip(params, want)):
+                expect(torch.equal(a, b), f"e2e 5K: parameter leaf {i} of the {what}-fed "
+                       "run differs from the service-fed runs'")
+        result["equal_to"] = list(sources)
+
+    def _staging(self, svc, feed) -> dict:
+        """What one batch's round trip costs: the service's result (host
+        numpy) copied into pinned buffers and to the card on a side stream
+        (PinnedStager.stage, host clock to the copy's end, after every slot
+        was made), the copy in and the copy back (device to pinned) alone by
+        CUDA events, each averaged over 20 batches; None in a rehearsal."""
+        if self.rehearse:
+            return None
+        torch = self.torch
+        from repro_torch.data import loader
+
+        host = svc.submit(feed.payloads[0]).result(timeout=E2E_WAIT_S)
+        stager = loader.PinnedStager(self.dev, slots=4)
+        side = torch.cuda.Stream(self.dev)
+        reps, warm, secs = 20, 8, []  # the warm-up fills every slot twice
+        with torch.cuda.stream(side):
+            for i in range(warm + reps):
+                t0 = time.perf_counter()
+                out, event = stager.stage(host)
+                event.synchronize()
+                if i >= warm:
+                    secs.append(time.perf_counter() - t0)
+            pinned = {k: torch.from_numpy(v).pin_memory() for k, v in host.items()}
+            h2d = self.event_ms(lambda: [t.to(self.dev, non_blocking=True)
+                                         for t in pinned.values()], reps=reps)
+            back = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for k, t in pinned.items()}
+            d2h = self.event_ms(lambda: [back[k].copy_(t, non_blocking=True)
+                                         for k, t in out.items()], reps=reps)
+        torch.cuda.synchronize()
+        return {"bytes_per_batch": sum(v.nbytes for v in host.values()),
+                "stage_ms": statistics.mean(secs) * 1e3, "h2d_ms": h2d, "d2h_ms": d2h,
+                "pinned_buffers": stager.pinned_buffers()}
+
+    def _oracle(self, data, launches: dict) -> dict:
+        """The engine on the card (both loops, default hints) against the
+        row-wise CPU baseline (core/baseline.py, 4 threads) over the first
+        ORACLE_ROWS rows of the utf8 feed and of the binary table, at 5K:
+        labels and ids bit for bit, dense at rtol 1e-6."""
+        np, torch, dev = self.np, self.torch, self.dev
+        from repro_torch.core import baseline, pipeline as P
+        from repro_torch.core import schema as schema_lib
+        from repro_torch.data import loader, synth
+
+        rows = ORACLE_ROWS["rehearsal" if self.rehearse else "card"]
+        kernels = counters()
+        reset_counters(kernels)
+        spans = data["utf8_spans"]
+        buf = data["utf8_buf"][:spans[rows - 1, 1]]
+        part = {k: v[:rows] for k, v in data["binary"].items()}
+        flat = loader.BinaryChunkFeed(part, MAX_ROWS).flat_chunks()
+        feeds = {
+            "utf8": (P.PipelineConfig(device=str(dev)),
+                     lambda: synth.chunk_stream(buf, CHUNK_BYTES),
+                     lambda: baseline.run_pipeline(buf, schema_lib.CRITEO, n_threads=4)),
+            "binary": (P.PipelineConfig(device=str(dev), input_format="binary"),
+                       lambda: ({k: v[i] for k, v in flat.items()}
+                                for i in range(len(flat["label"]))),
+                       lambda: baseline.run_pipeline(None, schema_lib.CRITEO, n_threads=4,
+                                                     binary_input=part)),
+        }
+        out = {"rows": rows}
+        for name, (config, chunks, oracle) in feeds.items():
+            outs = list(P.PiperPipeline(config).run_stream(chunks))
+            got = {f: torch.cat([getattr(o, f)[o.valid] for o in outs]).cpu().numpy()
+                   for f in ("label", "dense", "sparse")}
+            t0 = time.perf_counter()
+            want = oracle()
+            out[f"{name}_baseline_s"] = time.perf_counter() - t0
+            for f in ("label", "sparse"):
+                expect(got[f].dtype == np.int32 and np.array_equal(got[f], want[f]),
+                       f"e2e oracle {name}: the engine's {f} differs from the baseline's")
+            expect(np.allclose(got["dense"], want["dense"], rtol=1e-6, atol=0),
+                   f"e2e oracle {name}: the engine's dense beyond rtol 1e-6 of the baseline's")
+        got = {k: v.launches for k, v in kernels.items() if v.launches}
+        for k, v in got.items():
+            launches[k] += v
+        out["launches"] = got
+        return out
 
     # -- phase 6 -------------------------------------------------------- #
     def serve(self, data) -> tuple[dict, dict]:
@@ -2488,7 +2756,7 @@ def make_data(np, rows: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,golden,main,stream,train,serve")
+    ap.add_argument("--phases", default="kernels,golden,main,stream,train,serve,e2e")
     ap.add_argument("--out", default=None,
                     help="also write the kernel summary and every printed record to this JSON file")
     ap.add_argument("--rehearse", action="store_true",
@@ -2511,9 +2779,9 @@ def main(argv=None) -> int:
     smoke = Smoke(torch, np, args.rehearse)
     device = smoke.device()
     records, main_launches, train_launches, serve_launches = {}, None, None, None
-    stream_launches = None
+    stream_launches = e2e_launches = None
     rows = REHEARSAL_ROWS if args.rehearse else ROWS
-    data = (make_data(np, rows) if phases & {"kernels", "main", "stream", "train", "serve"}
+    data = (make_data(np, rows) if phases & {"kernels", "main", "stream", "train", "serve", "e2e"}
             else None)
     if "kernels" in phases:
         records = smoke.kernels(data)
@@ -2546,10 +2814,17 @@ def main(argv=None) -> int:
                 expect(all(m[name] > 0 for m in serve_launches.values()),
                        f"serve path: {name} was not launched in every prefill")
 
-    # launches on the paths: the main, stream and train phases' per range,
-    # the serve phase's per prefill
-    paths = [m for m in (main_launches, stream_launches, train_launches, serve_launches)
-             if m is not None]
+    if "e2e" in phases:
+        e2e_launches = {tag: smoke.e2e(data, tag) for tag in RANGES}
+        if not args.rehearse:
+            for name in E2E_KERNELS:
+                expect(all(m[name] > 0 for m in e2e_launches.values()),
+                       f"e2e path: {name} was not launched at every range")
+
+    # launches on the paths: the main, stream, train and e2e phases' per
+    # range, the serve phase's per prefill
+    paths = [m for m in (main_launches, stream_launches, train_launches, serve_launches,
+                         e2e_launches) if m is not None]
     kernels = []
     for key, rec in records.items():
         name, _, tag = key.partition("@")
@@ -2568,7 +2843,8 @@ def main(argv=None) -> int:
                                    "kernels_per_call")
                if k in rec},
             "launch_floor_ms": rec.get("launch_floor_ms", smoke.floor_ms),
-            "on_main_path": name in PATH_KERNELS + STREAM_KERNELS + TRAIN_KERNELS + SERVE_KERNELS,
+            "on_main_path": name in (PATH_KERNELS + STREAM_KERNELS + TRAIN_KERNELS
+                                     + SERVE_KERNELS + E2E_KERNELS),
             "shape": rec["shape"],
         })
     seconds = time.perf_counter() - t_start

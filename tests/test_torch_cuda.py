@@ -1648,3 +1648,65 @@ def test_spans_are_nvtx_ranges_on_the_card(cuda):
     with tracer.span("stream/dispatch"):
         torch.ones(4, device=cuda).sum()
     assert [e["name"] for e in tracer.events()] == ["stream/dispatch"]
+
+
+def _token_batch(step: int) -> dict:
+    rng = np.random.default_rng(step)
+    return {"tokens": rng.integers(0, 1 << 30, (512, 64), dtype=np.int32),
+            "dense": rng.standard_normal((512, 13)).astype(np.float32)}
+
+
+def test_device_prefetcher_reuses_pinned_buffers_under_a_slow_consumer(cuda):
+    """The prefetcher's copies held back behind a long kernel on its own
+    stream: the producer fills its depth + 2 pinned slots, then waits for a
+    slot's copy before writing it again, so every batch still holds its
+    own step's values; the consumer (slow, and computing on its own stream
+    right after get()) reads each batch only after its copy."""
+    from repro_torch.data import loader
+
+    pf = loader.DevicePrefetcher(_token_batch, depth=2, device="cuda")
+    with torch.cuda.stream(pf._stream):
+        torch.cuda._sleep(SLEEP_CYCLES)
+    pf.start()
+    try:
+        kept = []
+        for want in range(12):
+            step, batch = pf.get(timeout=120)
+            assert step == want
+            assert all(t.device.type == "cuda" for t in batch.values())
+            kept.append((step, {k: v.clone() for k, v in batch.items()}))  # on this stream
+            time.sleep(0.01)
+    finally:
+        pf.stop()
+    torch.cuda.synchronize()
+    assert pf.stager.pinned_buffers() == 4 * 2  # depth + 2 slots, two fields each
+    for step, batch in kept:
+        for k, v in _token_batch(step).items():
+            assert torch.equal(batch[k].cpu(), torch.from_numpy(v)), (step, k)
+
+
+def test_input_pipeline_batches_equal_across_overlap_on_the_card(cuda):
+    """The service on the card feeding TrainInputPipeline: overlap on and
+    off give the same batches, bit for bit, all on the card, and they equal
+    the CPU service's (dense at rtol 1e-6)."""
+    from repro_torch.stream import StreamingPreprocessService
+    from repro_torch.train import input_pipeline
+
+    buf, table = synth.make_dataset(synth.SynthConfig(rows=1024, seed=5))
+    payloads = list(synth.request_payloads(buf, table, [128] * 8))
+
+    def batches(device, overlap):
+        cfg = P.PipelineConfig(device=device, max_rows_per_chunk=1024, chunk_bytes=1 << 18)
+        state = P.PiperPipeline(cfg).build_state_stream(synth.chunk_stream(buf, 1 << 18))
+        with StreamingPreprocessService(cfg, state, bucket_rows=(128,)) as svc:
+            return [dict(b) for b in input_pipeline.TrainInputPipeline(
+                svc, payloads, batch_rows=200, n_steps=7, overlap=overlap, device=device)]
+
+    off, on, cpu = batches("cuda", False), batches("cuda", True), batches("cpu", True)
+    for a, b, c in zip(off, on, cpu):
+        for k in input_pipeline.FIELDS:
+            assert a[k].device.type == b[k].device.type == "cuda"
+            assert torch.equal(a[k], b[k]), k
+        for k in ("label", "sparse"):
+            assert torch.equal(a[k].cpu(), c[k]), k
+        torch.testing.assert_close(a["dense"].cpu(), c["dense"], rtol=1e-6, atol=0)

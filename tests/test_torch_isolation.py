@@ -34,7 +34,7 @@ from repro_torch.train import checkpoint, input_pipeline, optimizer, steps
 
 model = dlrm.DLRM(piper_dlrm.SMOKE.model, device="cpu", generator=torch.Generator().manual_seed(0))
 opt = optimizer.adamw_init(model.params_tree())
-batch = next(iter(input_pipeline.TrainInputPipeline(outs, batch_rows=32, n_steps=1)))
+batch = next(input_pipeline.stream_batches(outs, batch_rows=32, n_steps=1))
 metrics = steps.make_tabular_train_step(dlrm.loss, optimizer.AdamWConfig())(model, opt, batch)
 assert bool(torch.isfinite(metrics["loss"]))
 tree = {"params": model.params_tree(), "opt": opt, "extra": {"vocab": pipe.build_state_stream(
@@ -75,6 +75,22 @@ with StreamingPreprocessService(pc, state, bucket_rows=(16, 64),
 assert obs.validate_trace(obs.tracer().to_chrome()) == []
 snap = serve_launcher.main(["--piper-stream", "--rows", "300", "--device", "cpu"])
 assert snap["rows"] == 300
+# the row-wise baseline, and DLRM training fed by the service through the
+# overlapped input pipeline (the e2e launcher's functions)
+from repro_torch.core import baseline
+from repro_torch.data import loader
+from repro_torch.launch import train_dlrm_e2e
+
+assert baseline.run_pipeline(buf, pc.schema, n_threads=2)["label"].shape[0] == 50
+feed = train_dlrm_e2e.prepare(buf, pc.schema, payload_rows=25, device="cpu")
+svc = train_dlrm_e2e.start_service(feed, chunk_cache.ChunkCache(1 << 20))
+try:
+    small = dlrm.DLRMConfig(embed_dim=8, bottom_mlp=(8,), top_mlp=(8, 1))
+    report, _ = train_dlrm_e2e.train(svc, feed, small, optimizer.AdamWConfig(), steps=3,
+                                     batch=25)
+finally:
+    svc.stop()
+assert report["e2e_counters"]["batches_total"] == 3 and report["cache"]["hits_total"] >= 1
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
 """
@@ -89,8 +105,10 @@ def _env():
 def test_runs_without_jax_or_repro_in_sys_modules():
     """Piper's two loops, a DLRM train step and a checkpoint round trip, an
     LM prefill and a served request, the streaming service with its chunk
-    cache and the --piper-stream launcher, in a process that never imports
-    JAX or the JAX package."""
+    cache and the --piper-stream launcher, the row-wise baseline and DLRM
+    training fed by the service (the loader's prefetcher, the input
+    pipeline, the e2e launcher), in a process that never imports JAX or the
+    JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _RUN_PORT_ONLY], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=300, check=True,

@@ -1,7 +1,7 @@
 """The port's training side (repro_torch.train) against the JAX package's
 (repro.train) on the same numpy inputs: the optimizers and schedules over
-the same gradients, the tabular train step, the batch assembly of
-``TrainInputPipeline``, the checkpoint format in both directions, and the
+the same gradients, the tabular train step, the offline batch assembly
+(``stream_batches``), the checkpoint format in both directions, and the
 slice as a whole (Piper → DLRM, the reference's 256-row end-to-end test)
 through both packages from the same weights."""
 
@@ -213,8 +213,9 @@ class _EchoService:
 @pytest.mark.parametrize("batch_rows,n_steps", [(32, 12), (7, 5), (200, 3)])
 def test_batch_assembly_matches_reference(batch_rows, n_steps):
     """Ragged source batches (0 to 100 valid rows, padding rows between),
-    across epoch boundaries: the port's batches equal the reference
-    ``TrainInputPipeline``'s (``overlap=False``) row for row."""
+    across epoch boundaries: the port's offline assembly (``stream_batches``)
+    equals the reference ``TrainInputPipeline``'s (``overlap=False``) row
+    for row."""
     rng = np.random.default_rng(batch_rows)
     payloads, outs = [], []
     for n in (7, 0, 30, 100, 3):
@@ -232,7 +233,7 @@ def test_batch_assembly_matches_reference(batch_rows, n_steps):
     want = list(jinput.TrainInputPipeline(
         _EchoService(), payloads, batch_rows=batch_rows, n_steps=n_steps, overlap=False))
     for source in (outs, lambda: iter(outs)):
-        got = list(tinput.TrainInputPipeline(source, batch_rows=batch_rows, n_steps=n_steps))
+        got = list(tinput.stream_batches(source, batch_rows=batch_rows, n_steps=n_steps))
         assert len(got) == len(want) == n_steps
         for g, w in zip(got, want):
             assert set(g) == set(tinput.FIELDS)
@@ -245,9 +246,9 @@ def test_batch_assembly_refuses_an_empty_source():
         ((), torch.int32), ((13,), torch.float32), ((26,), torch.int32), ((), torch.bool))))
     for source in ([], [empty]):
         with pytest.raises(ValueError, match="no rows"):
-            list(tinput.TrainInputPipeline(source, batch_rows=4, n_steps=1))
+            list(tinput.stream_batches(source, batch_rows=4, n_steps=1))
     with pytest.raises(ValueError, match="batch_rows"):
-        tinput.TrainInputPipeline([], batch_rows=0, n_steps=1)
+        tinput.stream_batches([], batch_rows=0, n_steps=1)
 
 
 def _ckpt_trees(track_counts):
@@ -371,7 +372,7 @@ def test_piper_to_dlrm_training_matches_reference():
     tpipe = tP.PiperPipeline(tcfg.SMOKE.pipeline_config(device="cpu", max_rows_per_chunk=512))
     outs = list(tpipe.run_stream(lambda: tsynth.chunk_stream(tbuf, 1 << 16)))
     # the reference trains on the first chunk's valid rows, so every batch is those rows
-    batches = list(tinput.TrainInputPipeline(outs[:1], batch_rows=int(v.sum()), n_steps=30))
+    batches = list(tinput.stream_batches(outs[:1], batch_rows=int(v.sum()), n_steps=30))
     # Piper's own tolerance: dense at rtol 1e-6, the rest exact
     for key in ("sparse", "label"):
         np.testing.assert_array_equal(batches[0][key].numpy(), np.asarray(jbatch[key]))
