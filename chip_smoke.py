@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,golden,main,stream,train,serve,e2e] [--out results.json]
+    python3 chip_smoke.py [--phases kernels,golden,main,stream,train,serve,e2e,lm_train]
+                          [--out results.json]
     python3 chip_smoke.py --rehearse      # plumbing only, on the CPU
 
 Phases, each of which passes or ends the run with a non-zero exit:
@@ -104,6 +105,25 @@ Phases, each of which passes or ends the run with a non-zero exit:
      and the service's stall splits, cache hits and misses and launches
      per step by kernel; the H2D staging time per batch; the baseline's
      seconds.
+  9. lm_train — gemma-2b trained from Piper's tokens (launch/train.py's
+     functions, train/trainer.py's Trainer; bf16 compute, TF32 off).
+     preprocess_tokens over 2^16 synth rows on the card must launch one
+     fused_genvocab and one fused_transform per chunk and one decode_scan
+     per chunk in each loop, and equal the CPU path's tokens bit for bit.
+     gemma-2b SMOKE trains 3 steps on the card and on the CPU from the
+     same step-0 checkpoint and batches (losses, grad norms and weights
+     held to LM_SMOKE_TOL). Then CONFIG (18 layers, d 2048, vocab 256000)
+     with remat and the chunked route trains 6 steps of train_4k's
+     sequence (4096) at a global batch of 4 in 2 microbatches: finite
+     losses, no kernel of the port launched by a train step, ms per step
+     (CUDA events), tokens/s, the model-FLOPs share, busy share, device
+     launches per step, peak memory, the largest device costs of one
+     profiled step (products, the chunked attention's f32 einsums, the CE
+     blocks timed apart, clipping and AdamW) and the final checkpoint's
+     bytes and seconds (~30 GB under build/, restored bit for bit, then
+     deleted). Last, at full width cut to 2 layers, 4 steps uninterrupted
+     against 2 steps, a checkpoint, a new Trainer and 2 more: the weights
+     and AdamW state must be equal bit for bit.
 
 The last lines are the {"kernels": [...]} summary, the nvidia-smi name
 and power limit, and {"ok": true, "device": {...}}. Without a CUDA device,
@@ -116,6 +136,7 @@ times nothing and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -220,6 +241,31 @@ REHEARSAL_ROWS = {"utf8": 8000, "binary": 40000}
 PREFILLS = {"B4xS4096": (4, 4096), "B1xS32768": (1, 32768)}
 REHEARSAL_PREFILLS = {"B4xS4096": (4, 256), "B1xS32768": (1, 1024)}
 ENGINE = {"slots": 4, "cache_len": 1024, "requests": 8, "prompt_len": 64, "new_tokens": 16}
+# The lm_train phase: synth rows through launch/train.py's preprocess_tokens
+# (2^16 rows make 1.7 M tokens, so no window of a run wraps), the full-width
+# cell (train_4k's sequence, its global batch of 256 cut to 4 in 2
+# microbatches of 2 to fit one card and the phase's time, 6 steps) and the
+# resume contract's depth and steps. A rehearsal runs gemma-2b SMOKE at
+# shorter sequences.
+LM_TRAIN_ROWS = {"card": 1 << 16, "rehearsal": 1500}
+LM_TRAIN = {"card": {"batch": 4, "seq": 4096, "microbatches": 2, "steps": 6},
+            "rehearsal": {"batch": 4, "seq": 256, "microbatches": 2, "steps": 3}}
+LM_SMOKE_RUN = {"batch": 4, "seq": 256, "microbatches": 2, "steps": 3}
+LM_RESUME = {"layers": 2, "steps": 4}
+LM_LR = 3e-4
+# The lm_train path's kernels: Piper's decoded route in preprocess_tokens
+# (the train steps run the chunked route, which has no kernel).
+LM_TRAIN_KERNELS = ("decode_scan", "fused_genvocab", "fused_transform")
+# gemma-2b SMOKE, 3 steps from the same weights and batches, the card
+# against the CPU (bf16 compute, TF32 off): each step's loss and grad norm
+# within rtol 1e-3 (bf16 rounds at other points on the two devices; on an
+# H100 at most 5.2e-6 and 2.0e-4); at most 2% of a leaf's elements more
+# than lr apart (on an H100 at most 0.20%). That fraction is the weight
+# check: AdamW's step is about lr·sign(g), so two runs' weights differ by
+# about 0 or 2·lr an element and step, and a gradient within rounding of 0
+# may take the other sign. A bound on the largest gap, steps·2·lr, could
+# not fail; the largest gap is printed (on an H100 6.2e-4).
+LM_SMOKE_TOL = {"loss_rel": 1e-3, "grad_norm_rel": 1e-3, "flip_frac": 0.02}
 # Last-position logits of two bf16 routes, held as |Δ|₂ ≤ 5e-2·|ref|₂: each
 # layer rounds its attention output or residual sum to bf16 (a relative
 # step of 2^-9) at other points on the two routes, which over 18 layers
@@ -700,23 +746,58 @@ class Smoke:
             times.append(time.perf_counter() - t0)
         return times
 
-    def profile(self, fn) -> list | None:
+    def profile(self, fn, ops: bool = False):
         """The device's kernels and copies during one call of ``fn``
         (torch.profiler), by name: ``{"name", "count", "ms"}``, most device
-        time first. None in a rehearsal."""
+        time first. None in a rehearsal.
+
+        With ``ops`` the host is recorded too, and the result is ``(kernels,
+        host)``: ``host`` holds the ops and the port's obs spans (entered
+        while the process tracer is on) that launched device work, each
+        with the device ms of the kernels it launched itself (``ms``) and
+        with its children's (``total_ms``), most ``ms`` first. ``(None,
+        None)`` in a rehearsal. A span's range on the device is not a
+        kernel and is left out of ``kernels``."""
         if self.rehearse:
             fn()
-            return None
+            return (None, None) if ops else None
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ops else [])
+        with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
-        rows = [{"name": e.key[:80], "count": e.count, "ms": e.self_device_time_total / 1e3}
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total]
-        return sorted(rows, key=lambda r: -r["ms"])
+        cuda = torch.autograd.DeviceType.CUDA
+        kernels, host = [], []
+        for e in prof.key_averages():
+            if e.device_type == cuda:
+                if e.self_device_time_total and not getattr(e, "is_user_annotation", False):
+                    kernels.append({"name": e.key[:80], "count": e.count,
+                                    "ms": e.self_device_time_total / 1e3})
+            elif e.device_time_total:
+                host.append({"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3,
+                             "total_ms": e.device_time_total / 1e3})
+        kernels.sort(key=lambda r: -r["ms"])
+        if not ops:
+            return kernels
+        return kernels, sorted(host, key=lambda r: (-r["ms"], -r["total_ms"]))
+
+    @contextlib.contextmanager
+    def tracing(self):
+        """The port's process tracer on for the block (its spans recorded,
+        and entered in torch.profiler while that records), then as it was.
+        Yields the tracer."""
+        from repro_torch import obs
+
+        was_on = obs.enabled()
+        obs.enable()
+        try:
+            yield obs.tracer()
+        finally:
+            if not was_on:
+                obs.disable()
 
     def device_seconds(self, fn) -> float | None:
         """Seconds the device spent in kernels and copies during one call of
@@ -2736,6 +2817,309 @@ class Smoke:
         return records, launches
 
 
+    # -- phase 9 -------------------------------------------------------- #
+    def lm_train(self) -> dict:
+        """gemma-2b training from Piper's tokens: the tokens, SMOKE on the
+        card against the CPU, the full-width cell, the resume contract.
+        Returns {"lm_train": kernel → launches over the phase's path}.
+        Prints what it measured, also when a check fails."""
+        result = {"phase": "lm_train"}
+        try:
+            return self._lm_train(result)
+        finally:
+            emit(result)
+
+    def _lm_trainer(self, cfg, device, root: Path, run: dict, sparse, total_steps: int):
+        """A Trainer of ``cfg`` (remat, the chunked route) on ``device`` over
+        Piper's tokens, checkpointing only at its last step."""
+        from repro_torch.data import loader
+        from repro_torch.launch import specs
+        from repro_torch.train import optimizer, trainer
+
+        tcfg = trainer.TrainerConfig(total_steps=total_steps, ckpt_dir=str(root),
+                                     ckpt_every=1 << 30, keep_checkpoints=1,
+                                     microbatches=run["microbatches"], handle_signals=False)
+        batches = loader.PiperTokenBatches(sparse, cfg.vocab_size, run["batch"], run["seq"])
+        opt_cfg = optimizer.AdamWConfig(schedule=optimizer.constant_schedule(LM_LR))
+        return trainer.Trainer(specs.build_model(cfg, device=device), opt_cfg, tcfg, batches)
+
+    def _spy_steps(self, t, before=None, after=None) -> list:
+        """Wrap ``t.train_step``: ``before()`` and ``after()`` around each
+        call, and each call's metrics into the returned list."""
+        metrics, step = [], t.train_step
+
+        def spy(params, opt, batch):
+            if before:
+                before()
+            m = step(params, opt, batch)
+            if after:
+                after()
+            metrics.append(m)
+            return m
+
+        t.train_step = spy
+        return metrics
+
+    def _lm_train(self, result: dict) -> dict:
+        torch, np, dev = self.torch, self.np, self.dev
+        from repro_torch.configs import gemma_2b
+        from repro_torch.launch import train as launch_train
+
+        gc.collect()  # an earlier phase's tensors held through a reference cycle
+        if not self.rehearse:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        size = "rehearsal" if self.rehearse else "card"
+        run = LM_TRAIN[size]
+        cfg = gemma_2b.SMOKE if self.rehearse else gemma_2b.CONFIG
+        result.update(config=cfg.name, layers=cfg.n_layers, params=cfg.param_count(), **run,
+                      lr=LM_LR, allow_tf32={"cuda.matmul": torch.backends.cuda.matmul.allow_tf32,
+                                            "cudnn": torch.backends.cudnn.allow_tf32})
+        t_phase = time.perf_counter()
+        kernels = counters()
+
+        # Piper's tokens on the card, held to the CPU path bit for bit
+        rows = LM_TRAIN_ROWS[size]
+        n_chunks = len(launch_train.token_chunks(rows)[1])
+        reset_counters(kernels)
+        self.sync()
+        t0 = time.perf_counter()
+        sparse = launch_train.preprocess_tokens(rows, device=str(dev))
+        self.sync()
+        piper_s = time.perf_counter() - t0
+        launches = {k: v.launches for k, v in kernels.items()}
+        got = {k: v for k, v in launches.items() if v}
+        tokens = result["piper_tokens"] = {"rows": rows, "chunks": n_chunks,
+                                           "tokens": int(sparse.size), "seconds": piper_s,
+                                           "launches": got}
+        if not self.rehearse:
+            want = {"decode_scan": 2 * n_chunks, "fused_genvocab": n_chunks,
+                    "fused_transform": n_chunks}
+            expect(got == want, f"lm_train tokens: Piper launched {got}, expected {want} (one "
+                   "decode_scan a chunk in each loop, one fused_genvocab and one "
+                   "fused_transform a chunk)")
+        want = launch_train.preprocess_tokens(rows, device="cpu")
+        expect(sparse.dtype == want.dtype and np.array_equal(sparse, want),
+               "lm_train tokens: the card's tokens differ from the CPU path's")
+        tokens["equal_to_cpu"] = True
+        per_step = run["batch"] * run["seq"]
+        expect(max(run["steps"] + 1, LM_RESUME["steps"]) * per_step <= sparse.size,
+               f"lm_train tokens: {sparse.size} tokens, a window of {per_step} would wrap")
+
+        root = ROOT / "build" / "lm_train"
+        shutil.rmtree(root, ignore_errors=True)
+        self._lm_smoke_agreement(sparse, root, result)
+        self._lm_full(cfg, run, sparse, root, kernels, result)
+        self._lm_resume(cfg, run, sparse, root, result)
+        shutil.rmtree(root, ignore_errors=True)
+        result["seconds"] = time.perf_counter() - t_phase
+        result["launches"] = got
+        return {"lm_train": launches}
+
+    def _lm_smoke_agreement(self, sparse, root: Path, result: dict) -> None:
+        """gemma-2b SMOKE through the Trainer on the card and on the CPU,
+        both resuming one step-0 checkpoint made on the CPU (so the same
+        weights), over the same batches (LM_SMOKE_TOL)."""
+        torch, dev = self.torch, self.dev
+        from repro_torch import interop
+        from repro_torch.configs import gemma_2b
+        from repro_torch.launch import specs
+        from repro_torch.train import checkpoint, optimizer
+        from repro_torch.train.tree import leaves, leaves_with_paths
+
+        cfg, run = gemma_2b.SMOKE, LM_SMOKE_RUN
+        params = specs.build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        step0 = interop.lm_train_state_to_numpy(params, optimizer.adamw_init(params))
+        outs = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            checkpoint.save(str(root / f"smoke_{where}"), 0, step0)
+            t = self._lm_trainer(cfg, device, root / f"smoke_{where}", run, sparse, run["steps"])
+            metrics = self._spy_steps(t)
+            out = t.run(0)
+            norms = [m["grad_norm"] for m in metrics]
+            outs[where] = (out["losses"], [float(x) for x in norms], out["params"])
+        (gl, gn, gp), (cl, cn, cp) = outs["card"], outs["cpu"]
+        tol = LM_SMOKE_TOL
+        rec = {"steps": run["steps"], "batch": run["batch"], "seq": run["seq"],
+               "microbatches": run["microbatches"], "tolerance": tol, "losses_card": gl,
+               "losses_cpu": cl, "loss_rel_err": [abs(a / b - 1) for a, b in zip(gl, cl)],
+               "grad_norm_rel_err": [abs(a / b - 1) for a, b in zip(gn, cn)]}
+        lr = LM_LR
+        weights, failures = {}, []
+        for (path, a), b in zip(leaves_with_paths(gp), leaves(cp)):
+            d = (a.detach().cpu() - b.detach()).abs()
+            key = "/".join(path)
+            weights[key] = {"max_abs": float(d.max()), "flip_frac": float((d > lr).float().mean())}
+            if weights[key]["flip_frac"] > tol["flip_frac"]:
+                failures.append(f"{key}: {weights[key]}")
+        rec["worst_weight"] = max(weights.items(), key=lambda kv: kv[1]["flip_frac"])
+        result["smoke_card_vs_cpu"] = rec
+        expect(len(gl) == len(cl) == run["steps"], "lm_train SMOKE: a loss is missing")
+        expect(max(rec["loss_rel_err"]) <= tol["loss_rel"]
+               and max(rec["grad_norm_rel_err"]) <= tol["grad_norm_rel"] and not failures,
+               f"lm_train SMOKE: the card differs from the CPU beyond {tol}: loss "
+               f"{rec['loss_rel_err']}, grad_norm {rec['grad_norm_rel_err']}, weights "
+               + "; ".join(failures))
+
+    def _lm_full(self, cfg, run: dict, sparse, root: Path, kernels: dict, result: dict) -> None:
+        """The cell: ``cfg`` at its width and depth, remat and the chunked
+        route, ``run``'s batch in microbatches, timed, profiled and
+        checkpointed."""
+        torch, dev = self.torch, self.dev
+        from repro_torch import interop
+        from repro_torch.models import lm
+        from repro_torch.train import checkpoint
+        from repro_torch.train.tree import leaves, leaves_with_paths
+
+        steps, n_tok = run["steps"], run["batch"] * run["seq"]
+        t = self._lm_trainer(cfg, dev, root / "full", run, sparse, steps)
+        starts, ends, step_launches = [], [], []
+
+        def mark(into):
+            if not self.rehearse:
+                into.append(torch.cuda.Event(enable_timing=True))
+                into[-1].record()
+
+        def before():
+            reset_counters(kernels)
+            mark(starts)
+
+        def after():
+            mark(ends)
+            step_launches.append({k: v.launches for k, v in kernels.items() if v.launches})
+
+        self._spy_steps(t, before, after)
+        with self.tracing() as tracer:  # the Trainer's checkpoint spans
+            t0 = time.perf_counter()
+            out = t.run(torch.Generator(dev).manual_seed(0))
+            t_end = time.perf_counter()
+        spans = {e["name"]: e["dur"] / 1e6 for e in tracer.events()
+                 if e["name"] in ("train/checkpoint", "train/checkpoint_wait")}
+        rec = {"steps": steps, "tokens_per_step": n_tok, "seconds": t_end - t0,
+               "losses": out["losses"], "host_step_s": out["step_times"],
+               "launches_per_step": list(step_launches)}
+        result["full"] = rec
+        expect(out["final_step"] == steps and len(out["losses"]) == steps
+               and all(math.isfinite(x) for x in out["losses"]),
+               f"lm_train full: losses {out['losses']} after {out['final_step']} steps")
+        expect(not any(step_launches), f"lm_train full: a train step launched the port's kernels "
+               f"{step_launches} (the chunked route has none)")
+        if starts:
+            step_ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
+            med = statistics.median(step_ms[1:])
+            n_params = cfg.param_count()
+            rec.update(step_ms=step_ms, ms_per_step_median=med, tokens_per_s=n_tok / (med / 1e3),
+                       model_flops_share=6 * n_params * n_tok / (med / 1e3)
+                       / TENSOR_CORE_BF16_OPS_PER_S,
+                       model_flops={"N": n_params, "T": n_tok, "six_N_T": 6 * n_params * n_tok,
+                                    "peak_flops": TENSOR_CORE_BF16_OPS_PER_S,
+                                    "peak_of": "H100 SXM dense bf16", "card": self.smi},
+                       peak_memory_bytes_training=torch.cuda.max_memory_allocated())
+
+        # the final checkpoint: its bytes and seconds, restored bit for bit
+        files = list((root / "full").glob("step_*/*.npy"))
+        ck = rec["checkpoint"] = {"bytes": sum(f.stat().st_size for f in files),
+                                  "files": len(files),
+                                  "snapshot_s": spans.get("train/checkpoint"),
+                                  "write_s": spans.get("train/checkpoint_wait")}
+        expect(checkpoint.latest_step(str(root / "full")) == steps, "lm_train full: no checkpoint")
+        t0 = time.perf_counter()
+        back = checkpoint.restore(str(root / "full"), steps, interop.lm_train_state_like(cfg),
+                                  device="cpu")
+        ck["read_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name, stacked, live in (("params", back["params"], out["params"]),
+                                    ("m", back["opt"]["m"], out["opt_state"]["m"]),
+                                    ("v", back["opt"]["v"], out["opt_state"]["v"])):
+            got = interop.lm_params_from_numpy(stacked, cfg, device=dev)
+            for (path, a), b in zip(leaves_with_paths(got), leaves(live)):
+                expect(torch.equal(a, b.detach()), f"lm_train full: checkpoint leaf {name}/"
+                       f"{'/'.join(path)} differs after the round trip")
+            del got
+        expect(int(back["opt"]["step"]) == steps, "lm_train full: checkpoint step differs")
+        ck["to_device_and_compare_s"] = time.perf_counter() - t0
+        del back
+        shutil.rmtree(root / "full")
+
+        # one more step profiled: where its device time goes
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in t.batch_fn(steps).items()}
+        with self.tracing():  # the optimizer's spans, in the profile
+            kern, ops = self.profile(
+                lambda: t.train_step(out["params"], out["opt_state"], batch), ops=True)
+        if kern is not None:
+            busy = sum(r["ms"] for r in kern)
+            by_op = {r["name"]: r["ms"] for r in ops}
+            span_ms = {r["name"]: r["total_ms"] for r in ops if r["name"].startswith("train/")}
+            prof = rec["profiled_step"] = {
+                "device_ms": busy, "device_launches": sum(r["count"] for r in kern),
+                "top_kernels": kern[:10], "top_ops": [r for r in ops if r["ms"]][:14],
+                "products_ms": sum(v for k, v in by_op.items()
+                                   if k in ("aten::mm", "aten::addmm", "aten::matmul")),
+                "attention_f32_einsum_ms": by_op.get("aten::bmm", 0.0),
+                "clip_ms": span_ms.get("train/clip"),
+                "adamw_with_clip_ms": span_ms.get("train/adamw")}
+            if "ms_per_step_median" in rec:
+                prof["device_busy_share"] = busy / rec["ms_per_step_median"]
+            # the CE blocks of one step, timed apart at the microbatch's shape
+            mb = run["batch"] // run["microbatches"]
+            gen = torch.Generator(dev).manual_seed(1)
+            x = torch.randn((mb, run["seq"], cfg.d_model), generator=gen, device=dev,
+                            dtype=torch.bfloat16).requires_grad_()
+            tgt = batch["tokens"][:mb]
+            wts = torch.ones(tgt.shape, dtype=torch.float32, device=dev)
+            embed = out["params"]["embed"]
+
+            def ce():
+                lm.chunked_ce(x, embed.T, tgt, wts, block=t.model.ce_block).backward()
+
+            prof["ce_blocks_ms_per_step"] = self.event_ms(ce, reps=3, warmup=1) \
+                * run["microbatches"]
+            embed.grad = None
+            del x
+        del out, t
+        gc.collect()
+        if not self.rehearse:
+            torch.cuda.empty_cache()
+
+    def _lm_resume(self, cfg, run: dict, sparse, root: Path, result: dict) -> None:
+        """The fault-tolerance contract at ``cfg``'s width, cut to
+        LM_RESUME's depth: its steps uninterrupted against half of them, a
+        checkpoint, a new Trainer and the rest. Weights and AdamW state
+        equal bit for bit."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.train.tree import leaves_with_paths
+
+        cut = dataclasses.replace(cfg, n_superblocks=LM_RESUME["layers"])
+        steps, half = LM_RESUME["steps"], LM_RESUME["steps"] // 2
+        t0 = time.perf_counter()
+        whole = self._lm_trainer(cut, dev, root / "resume_whole", run, sparse, steps).run(0)
+        self._lm_trainer(cut, dev, root / "resume_split", run, sparse, half).run(0)
+        resumed = self._lm_trainer(cut, dev, root / "resume_split", run, sparse, steps).run(0)
+        rec = result["resume"] = {
+            "layers": cut.n_layers, "params": cut.param_count(), "steps": steps,
+            "checkpoint_at": half, "losses_whole": whole["losses"],
+            "losses_resumed": resumed["losses"], "seconds": time.perf_counter() - t0}
+        expect(resumed["final_step"] == steps and len(resumed["losses"]) == steps - half,
+               f"lm_train resume: the second Trainer ran {resumed['final_step']} steps")
+        unequal = []
+        for key in ("params", "opt_state"):
+            for (path, a), (_, b) in zip(leaves_with_paths(whole[key]),
+                                         leaves_with_paths(resumed[key])):
+                if not torch.equal(a, b):
+                    unequal.append(f"{key}/{'/'.join(path)}: max |Δ| "
+                                   f"{float((a.double() - b.double()).abs().max())}")
+        rec["bitwise_equal"] = not unequal
+        rec["unequal_leaves"] = unequal
+        expect(not unequal and resumed["losses"] == whole["losses"][half:],
+               "lm_train resume: the resumed run differs from the uninterrupted one: "
+               + "; ".join(unequal[:6]))
+        del whole, resumed
+        gc.collect()
+        if not self.rehearse:
+            torch.cuda.empty_cache()
+
 def make_data(np, rows: dict) -> dict:
     """The main path's feeds, made from fixed seeds."""
     from repro_torch.data import synth
@@ -2756,7 +3140,7 @@ def make_data(np, rows: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,golden,main,stream,train,serve,e2e")
+    ap.add_argument("--phases", default="kernels,golden,main,stream,train,serve,e2e,lm_train")
     ap.add_argument("--out", default=None,
                     help="also write the kernel summary and every printed record to this JSON file")
     ap.add_argument("--rehearse", action="store_true",
@@ -2779,7 +3163,7 @@ def main(argv=None) -> int:
     smoke = Smoke(torch, np, args.rehearse)
     device = smoke.device()
     records, main_launches, train_launches, serve_launches = {}, None, None, None
-    stream_launches = e2e_launches = None
+    stream_launches = e2e_launches = lm_launches = None
     rows = REHEARSAL_ROWS if args.rehearse else ROWS
     data = (make_data(np, rows) if phases & {"kernels", "main", "stream", "train", "serve", "e2e"}
             else None)
@@ -2821,10 +3205,17 @@ def main(argv=None) -> int:
                 expect(all(m[name] > 0 for m in e2e_launches.values()),
                        f"e2e path: {name} was not launched at every range")
 
+    if "lm_train" in phases:
+        lm_launches = smoke.lm_train()
+        if not args.rehearse:
+            for name in LM_TRAIN_KERNELS:
+                expect(lm_launches["lm_train"][name] > 0, f"lm_train path: {name} was never "
+                       "launched")
+
     # launches on the paths: the main, stream, train and e2e phases' per
-    # range, the serve phase's per prefill
+    # range, the serve phase's per prefill, the lm_train phase's
     paths = [m for m in (main_launches, stream_launches, train_launches, serve_launches,
-                         e2e_launches) if m is not None]
+                         e2e_launches, lm_launches) if m is not None]
     kernels = []
     for key, rec in records.items():
         name, _, tag = key.partition("@")
@@ -2844,7 +3235,7 @@ def main(argv=None) -> int:
                if k in rec},
             "launch_floor_ms": rec.get("launch_floor_ms", smoke.floor_ms),
             "on_main_path": name in (PATH_KERNELS + STREAM_KERNELS + TRAIN_KERNELS
-                                     + SERVE_KERNELS + E2E_KERNELS),
+                                     + SERVE_KERNELS + E2E_KERNELS + LM_TRAIN_KERNELS),
             "shape": rec["shape"],
         })
     seconds = time.perf_counter() - t_start

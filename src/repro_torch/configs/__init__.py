@@ -12,10 +12,13 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-# arch id → module name; the reference's other nine architectures come with
-# the rest of the model zoo (ROADMAP queue 1 item 10)
+# arch id → module name: the reference's dense decoder-only architectures;
+# its other six come with the rest of the model zoo (ROADMAP queue 1 item 10)
 _MODULES = {
+    "command-r-plus-104b": "command_r_plus_104b",
+    "minitron-8b": "minitron_8b",
     "gemma-2b": "gemma_2b",
+    "gemma-7b": "gemma_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

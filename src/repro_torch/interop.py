@@ -9,7 +9,9 @@ package's loop ① built continues in the port's, and the reverse.
 into the port's, so both compile one plan. The DLRM's parameters and its
 AdamW state move as the JAX package's trees of numpy arrays, so both
 packages train from the same weights; the language model's parameters
-move the same way (:func:`lm_params_from_numpy`).
+move the same way (:func:`lm_params_from_numpy`), and so does an LM
+trainer's state (:func:`lm_train_state_to_numpy`), which is the tree its
+checkpoints hold.
 """
 
 from __future__ import annotations
@@ -172,13 +174,72 @@ def lm_params_from_numpy(tree, cfg, *, device="cuda"):
     return out
 
 
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A host array of its own (a CPU tensor is copied too)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 def lm_params_to_numpy(params) -> dict:
     """The port's ``LM`` parameters → the JAX package's tree: float32 numpy
-    arrays, each spec's layers stacked on a leading ``n_superblocks`` axis."""
-    out = {k: tree_map(lambda t: t.detach().cpu().numpy(), v)
-           for k, v in params.items() if k != "blocks"}
-    out["blocks"] = tuple(
-        tree_map(lambda *ts: np.stack([t.detach().cpu().numpy() for t in ts]), *specs)
-        for specs in zip(*params["blocks"])
-    )
+    arrays, each spec's layers stacked on a leading ``n_superblocks`` axis.
+    Every array is a host copy of its own, each layer copied once, straight
+    into its slot."""
+    out = {k: tree_map(_host_copy, v) for k, v in params.items() if k != "blocks"}
+
+    def stack(*layers):
+        arr = np.empty((len(layers),) + tuple(layers[0].shape), np.float32)
+        for i, t in enumerate(layers):
+            torch.from_numpy(arr[i]).copy_(t.detach())
+        return arr
+
+    out["blocks"] = tuple(tree_map(stack, *specs) for specs in zip(*params["blocks"]))
     return out
+
+
+def lm_adamw_state_from_numpy(state, cfg, *, device="cuda") -> dict:
+    """The JAX package's AdamW state of an ``LM`` (``{"m", "v", "step"}``,
+    ``m`` and ``v`` in the stacked ``LM.init`` tree) → the port's, on
+    ``device``, ``m`` and ``v`` superblock by superblock."""
+    dev = lm_lib._resolve_device(device)
+    return {"m": lm_params_from_numpy(state["m"], cfg, device=dev),
+            "v": lm_params_from_numpy(state["v"], cfg, device=dev),
+            "step": _int32(state["step"], "step", 0, dev)}
+
+
+def lm_adamw_state_to_numpy(state: dict) -> dict:
+    """The port's AdamW state of an ``LM`` → the JAX package's tree (``m``
+    and ``v`` stacked as :func:`lm_params_to_numpy` stacks them)."""
+    return {"m": lm_params_to_numpy(state["m"]), "v": lm_params_to_numpy(state["v"]),
+            "step": _host_copy(state["step"])}
+
+
+def lm_train_state_to_numpy(params, opt_state: dict) -> dict:
+    """``{"params", "opt"}`` of an LM trainer in the JAX package's layout
+    (stacked), every leaf a host copy of its own: the tree that
+    ``train/trainer.py`` checkpoints, so that either package's ``Trainer``
+    resumes the other's checkpoints."""
+    return {"params": lm_params_to_numpy(params), "opt": lm_adamw_state_to_numpy(opt_state)}
+
+
+def lm_train_state_from_numpy(tree, cfg, *, device="cuda") -> tuple:
+    """The tree of :func:`lm_train_state_to_numpy` (or the JAX trainer's
+    checkpoint, restored as numpy or CPU tensors) → ``(params, opt_state)``
+    in the port's layout on ``device``."""
+    return (lm_params_from_numpy(tree["params"], cfg, device=device),
+            lm_adamw_state_from_numpy(tree["opt"], cfg, device=device))
+
+
+def lm_train_state_like(cfg) -> dict:
+    """The shapes of :func:`lm_train_state_to_numpy`'s tree for ``cfg``, as
+    tensors on the ``meta`` device (no memory): the ``like`` tree of
+    ``train/checkpoint.py::restore``."""
+    skeleton = lm_lib.LM(cfg, device="meta").init()
+    n = cfg.n_superblocks
+
+    def stacked(t):
+        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device="meta")
+
+    params = {k: v for k, v in skeleton.items() if k != "blocks"}
+    params["blocks"] = tuple(tree_map(stacked, p) for p in skeleton["blocks"][0])
+    step = torch.empty((), dtype=torch.int32, device="meta")
+    return {"params": params, "opt": {"m": params, "v": params, "step": step}}

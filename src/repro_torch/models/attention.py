@@ -10,6 +10,12 @@ Counterpart of ``repro/models/attention.py``. Three routes, one semantics:
     sliding window: ``forward`` raises for ``window > 0`` on that route
     (the reference silently attends to the whole sequence there).
 
+While autograd records, ``forward`` runs the chunked route under a
+non-reentrant checkpoint, as the reference runs it under
+``jax.checkpoint``: the backward recomputes each kv block's float32
+scores and probabilities instead of saving them all (about 0.5 GB a
+block at 2 × 4096 tokens of gemma-2b).
+
 Decode steps attend one token to a ``full`` KV cache by einsum. The
 reference's decode einsums accumulate a bf16 cache in float32
 (``preferred_element_type``); torch has no such product, so the port casts
@@ -24,8 +30,10 @@ queue 1 item 10).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import common
@@ -188,7 +196,10 @@ def forward(
     elif impl == "einsum":
         out = attention_einsum(q, k, v, causal=causal, window=window)
     else:
-        out = attention_chunked(q, k, v, causal=causal, window=window, block_k=block_k)
+        fn = functools.partial(attention_chunked, causal=causal, window=window,
+                               block_k=block_k)
+        out = (checkpoint(fn, q, k, v, use_reentrant=False, preserve_rng_state=False)
+               if torch.is_grad_enabled() else fn(q, k, v))
     return common.dense(_merge_heads(out), params["wo"])
 
 

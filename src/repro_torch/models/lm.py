@@ -3,8 +3,7 @@
 Counterpart of ``repro/models/lm.py::LM`` for ``kind="attn"`` layers with
 causal or bidirectional attention and dense MLPs. Other layer kinds (MoE,
 SSM, hybrid, cross-attention) and ``EncDec`` come with the rest of the
-model zoo, and LM training (``loss``, ``chunked_ce``) with ROADMAP queue 1
-item 12; both raise ``NotImplementedError`` until then.
+model zoo and raise ``NotImplementedError``.
 
 The parameters are the reference's tree, with the stacked per-spec arrays
 unstacked into a list: ``{"embed" [V, d], "blocks": [superblock][spec]
@@ -17,13 +16,24 @@ Entry points:
     init(generator)                          → params
     hidden(params, tokens)                   → final-norm hidden states
     forward(params, tokens)                  → logits
+    loss(params, tokens)                     → next-token CE (chunked_ce)
     init_decode_state(batch, cache_len)      → per-layer KV caches
     decode_step(params, token, state, pos)   → (logits, state)
 
+Training: ``loss`` differentiates once the parameters require gradients
+(``train/steps.py::trainable``; ``init`` makes plain tensors, which
+prefill and serving use under ``torch.no_grad``). With ``remat`` (the
+default) each superblock runs under a non-reentrant
+``torch.utils.checkpoint``, so the backward keeps only the float32 carry
+between superblocks and recomputes the rest, as the reference's
+``jax.checkpoint`` does; ``chunked_ce`` checkpoints each sequence block,
+so the full [B, S, V] logits are never held.
+
 ``attn_impl`` picks the attention route of the full-sequence passes:
-``"chunked"`` (the reference's default), ``"einsum"``, or ``"flash"``, the
-hand-written kernel (``attention.forward(use_flash_kernel=True)``), which
-is forward only: a backward through it raises.
+``"chunked"`` (the reference's default, and the one that trains),
+``"einsum"``, or ``"flash"``, the hand-written kernel
+(``attention.forward(use_flash_kernel=True)``), which is forward only: a
+backward through it raises.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, mlp
 from repro_torch.models.common import LayerSpec, ModelConfig, Params
@@ -119,16 +130,57 @@ def _block_decode(
 
 
 # --------------------------------------------------------------------- #
-# loss helper
+# loss helpers
 # --------------------------------------------------------------------- #
 def next_token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """logits [B,S,V] (any dtype); targets int [B,S] → mean NLL (float32),
-    in the reference's logsumexp form."""
+    in the reference's logsumexp form. Small shapes only; training uses
+    :func:`chunked_ce`."""
     m = logits.amax(dim=-1, keepdim=True)
     lse = torch.log(torch.sum(torch.exp((logits - m).to(torch.float32)), dim=-1)) \
         + m[..., 0].to(torch.float32)
     lab = torch.gather(logits, -1, targets[..., None].to(torch.int64))[..., 0]
     return torch.mean(lse - lab.to(torch.float32))
+
+
+def _ce_block(xblk: torch.Tensor, w: torch.Tensor, tblk: torch.Tensor,
+              wblk: torch.Tensor) -> torch.Tensor:
+    """One sequence block of :func:`chunked_ce`: its logits [B, blk, V] in
+    x's dtype, reduced to the weighted NLL sum in float32."""
+    logits = xblk @ w.to(xblk.dtype)
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp((logits - m).to(torch.float32)), dim=-1)) \
+        + m[..., 0].to(torch.float32)
+    lab = torch.gather(logits, -1, tblk[..., None].to(torch.int64))[..., 0]
+    return torch.sum((lse - lab.to(torch.float32)) * wblk)
+
+
+def chunked_ce(
+    x: torch.Tensor,        # [B, S, d] final hidden states
+    w: torch.Tensor,        # [d, V] head weights (cast at use)
+    targets: torch.Tensor,  # int [B, S]
+    weights: torch.Tensor,  # float32 [B, S] (0 masks a position)
+    block: int = 512,
+) -> torch.Tensor:
+    """Head projection + softmax CE over sequence blocks of ``block``
+    (the sequence padded to a multiple of it with weight 0), the weighted
+    mean NLL in float32. While autograd records, each block runs under a
+    non-reentrant checkpoint, so the backward recomputes its [B, block, V]
+    logits and never holds [B, S, V]."""
+    b, s, _ = x.shape
+    pad = (-s) % block
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+        weights = torch.nn.functional.pad(weights, (0, pad))
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, s + pad, block):
+        blk = (x[:, start:start + block], w, targets[:, start:start + block],
+               weights[:, start:start + block])
+        total = total + (checkpoint(_ce_block, *blk, use_reentrant=False,
+                                    preserve_rng_state=False) if remat else _ce_block(*blk))
+    return total / torch.clamp(torch.sum(weights), min=1.0)
 
 
 # --------------------------------------------------------------------- #
@@ -137,8 +189,10 @@ def next_token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(eq=False)
 class LM:
     cfg: ModelConfig
+    remat: bool = True          # checkpoint each superblock while autograd records
     attn_impl: str = "chunked"  # "chunked" | "einsum" | "flash"
     attn_block_k: int = 1024    # kv block of the chunked online softmax
+    ce_block: int = 512         # sequence block of the chunked-CE head
     device: torch.device | str = "cuda"
 
     def __post_init__(self):
@@ -189,8 +243,13 @@ class LM:
         """Trunk only: tokens int [B,S] → final-norm hidden [B,S,d]. (The
         reference also returns the MoE auxiliary loss, always 0 here.)"""
         x32 = params["embed"][tokens.to(torch.int64)].to(compute_dtype).to(torch.float32)
+        remat = self.remat and torch.is_grad_enabled()
         for sb in params["blocks"]:
-            x32 = self._superblock_body(x32, sb, compute_dtype)
+            if remat:
+                x32 = checkpoint(self._superblock_body, x32, sb, compute_dtype,
+                                 use_reentrant=False, preserve_rng_state=False)
+            else:
+                x32 = self._superblock_body(x32, sb, compute_dtype)
         return common.norm(x32.to(compute_dtype), params["final_norm"], self.cfg.norm)
 
     def head_weight(self, params: Params) -> torch.Tensor:
@@ -209,6 +268,19 @@ class LM:
                 compute_dtype=torch.bfloat16) -> torch.Tensor:
         """tokens int [B,S] → logits [B,S,V] in the compute dtype."""
         return self._head(params, self.hidden(params, tokens, compute_dtype))
+
+    def loss(self, params: Params, tokens: torch.Tensor,
+             compute_dtype=torch.bfloat16) -> torch.Tensor:
+        """Next-token CE through :func:`chunked_ce` (the full logits are
+        never held): the targets are the tokens shifted left, the last
+        position weighs 0. The reference adds ``aux_weight`` times the MoE
+        auxiliary loss, which is 0 for the port's dense layers, so the
+        loss is the NLL."""
+        x = self.hidden(params, tokens, compute_dtype)
+        weights = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+        weights[:, -1] = 0.0
+        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+        return chunked_ce(x, self.head_weight(params), targets, weights, block=self.ce_block)
 
     # ------------------------- serving ------------------------------ #
     def init_decode_state(self, batch: int, cache_len: int, dtype=torch.bfloat16) -> list:

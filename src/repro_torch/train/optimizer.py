@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.train.tree import leaves, tree_map
 
 
@@ -102,22 +103,26 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     formula: ``m = b1·m + (1-b1)·g``, ``v = b2·v + (1-b2)·g²``, ``p -= lr ·
     ((m / bc1) / (sqrt(v / bc2) + eps) + wd·p)``, over every element,
     rows with a zero gradient included. Returns ``(params, state,
-    {"grad_norm", "lr"})``, the metrics as device tensors."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm)
-    step = state["step"]
-    step.add_(1)
-    lr = cfg.schedule(step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - torch.pow(b1, step.to(torch.float32))
-    bc2 = 1 - torch.pow(b2, step.to(torch.float32))
-    with torch.no_grad():
-        for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
-                              leaves(state["v"])):
-            m.mul_(b1).add_(g, alpha=1 - b1)
-            v.mul_(b2).addcmul_(g, g, value=1 - b2)
-            u = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-            u.add_(p, alpha=cfg.weight_decay)
-            p.sub_(u.mul_(lr))
+    {"grad_norm", "lr"})``, the metrics as device tensors. The update is
+    the span ``train/adamw`` and its clipping ``train/clip`` (recorded
+    while the process tracer is on; see :mod:`repro_torch.obs`)."""
+    with obs.span("train/adamw", cat="train"):
+        with obs.span("train/clip", cat="train"):
+            grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm)
+        step = state["step"]
+        step.add_(1)
+        lr = cfg.schedule(step)
+        b1, b2 = cfg.b1, cfg.b2
+        bc1 = 1 - torch.pow(b1, step.to(torch.float32))
+        bc2 = 1 - torch.pow(b2, step.to(torch.float32))
+        with torch.no_grad():
+            for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
+                                  leaves(state["v"])):
+                m.mul_(b1).add_(g, alpha=1 - b1)
+                v.mul_(b2).addcmul_(g, g, value=1 - b2)
+                u = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
+                u.add_(p, alpha=cfg.weight_decay)
+                p.sub_(u.mul_(lr))
     return params, state, {"grad_norm": gnorm, "lr": lr}
 
 

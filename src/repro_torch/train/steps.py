@@ -1,9 +1,13 @@
 """Train, prefill and serve step factories.
 
-Counterpart of ``repro/train/steps.py``: ``make_tabular_train_step`` for
-the DLRM, and ``make_prefill_step`` / ``make_serve_step`` for the
-language model. The LM's ``make_train_step`` comes with LM training
-(ROADMAP queue 1 item 12).
+Counterpart of ``repro/train/steps.py``: ``make_train_step`` for the
+language model, ``make_tabular_train_step`` for the DLRM, and
+``make_prefill_step`` / ``make_serve_step`` for serving.
+
+The train steps work in place: ``train_step(params_or_model, opt_state,
+batch) → metrics`` updates the parameters and ``opt_state`` and returns
+``loss``, ``grad_norm`` and ``lr`` as device tensors, and nothing in the
+step waits for the device.
 """
 
 from __future__ import annotations
@@ -25,6 +29,65 @@ def value_and_grad(loss_fn, model, batch: dict):
     loss = loss_fn(model, batch)
     loss.backward()
     return loss.detach(), tree_map(lambda p: p.grad, params)
+
+
+def trainable(params):
+    """Turn gradients on for every leaf of an LM parameter tree (``LM.init``
+    makes plain tensors, which prefill and serving use as they are).
+    Returns the same tree."""
+    for p in leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+def make_train_step(model, opt_cfg: opt_lib.AdamWConfig, microbatches: int = 1):
+    """The LM's train step over ``{"tokens": int [B, S]}`` batches.
+
+    ``train_step(params, opt_state, batch) → metrics``: ``model.loss``,
+    its backward, global-norm clipping and AdamW on ``params`` (made
+    :func:`trainable`) and ``opt_state``, in place.
+
+    ``microbatches > 1`` splits the batch on its leading axis into equal
+    consecutive parts and accumulates the float32 gradient in the
+    parameters' ``.grad`` as ``acc + g / microbatches`` (each part's
+    backward runs on its loss over ``microbatches``; for a power of two
+    that scaling is exact, so the sum is the reference's), with no
+    accumulator of its own. The loss is the mean of the parts' losses.
+    The gradients are dropped before the step returns.
+    """
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be ≥ 1, got {microbatches}")
+
+    def train_step(params, opt_state: dict, batch: dict) -> dict:
+        extra = sorted(set(batch) - {"tokens"})
+        if extra:
+            raise NotImplementedError(
+                f"batch keys {extra}: the port's LM takes tokens only; the audio and vision "
+                "families come with the rest of the model zoo (ROADMAP queue 1 item 10)")
+        tokens = batch["tokens"]
+        if tokens.shape[0] % microbatches:
+            raise ValueError(f"batch of {tokens.shape[0]} rows does not split into "
+                             f"{microbatches} microbatches")
+        for p in leaves(trainable(params)):
+            p.grad = None
+        if microbatches == 1:
+            loss = model.loss(params, tokens)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for micro in tokens.chunk(microbatches):
+                part = model.loss(params, micro)
+                (part / microbatches).backward()
+                loss = loss + part.detach() / microbatches
+        grads = tree_map(lambda p: p.grad, params)
+        _, _, metrics = opt_lib.adamw_update(params, grads, opt_state, opt_cfg)
+        for p in leaves(params):
+            p.grad = None
+        metrics["loss"] = loss
+        return metrics
+
+    return train_step
 
 
 def make_tabular_train_step(loss_fn, opt_cfg: opt_lib.AdamWConfig):

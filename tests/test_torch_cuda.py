@@ -1461,6 +1461,33 @@ def test_lm_smoke_prefill_on_card_matches_cpu(cuda):
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
 
 
+@pytest.mark.parametrize("dtype,loss_rel,grad_rel_l2", [(torch.float32, 1e-5, 1e-4),
+                                                        (torch.bfloat16, 1e-3, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_lm_smoke_loss_and_gradients_on_card_match_cpu(cuda, dtype, loss_rel, grad_rel_l2):
+    """gemma-2b SMOKE's LM.loss (chunked attention, remat, chunked CE over
+    blocks of 32 with a padded tail) and every parameter's gradient on the
+    card against the CPU path from the same weights (TF32 off): float32
+    compute differs in summation order only; bf16 compute rounds at other
+    points (the CPU tests hold the JAX package to the same bounds)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tgemma.SMOKE
+    cpu_model = tlm.LM(cfg, ce_block=32, device="cpu")
+    params = tsteps.trainable(cpu_model.init(torch.Generator().manual_seed(0)))
+    card_params = tsteps.trainable(ttree.tree_map(lambda t: t.detach().to(cuda), params))
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 72),
+                                                                dtype=np.int32))
+    want = cpu_model.loss(params, tokens, compute_dtype=dtype)
+    want.backward()
+    got = tlm.LM(cfg, ce_block=32, device=cuda).loss(card_params, tokens.to(cuda),
+                                                     compute_dtype=dtype)
+    got.backward()
+    assert abs(float(got) / float(want) - 1) <= loss_rel
+    for g, w in zip(leaves(card_params), leaves(params)):
+        d = (g.grad.cpu() - w.grad).norm() / w.grad.norm()
+        assert float(d) <= grad_rel_l2
+
+
 # --------------------------------------------------------------------- #
 # host threads and the streaming service's streams
 # --------------------------------------------------------------------- #

@@ -91,6 +91,25 @@ try:
 finally:
     svc.stop()
 assert report["e2e_counters"]["batches_total"] == 3 and report["cache"]["hits_total"] >= 1
+# LM training: the shapes, build_model, a Trainer step with a checkpoint,
+# and the training launcher on Piper's tokens
+from repro_torch.configs import shapes
+from repro_torch.launch import specs
+from repro_torch.launch import train as train_launcher
+from repro_torch.train import trainer
+
+cfg = configs.get_smoke("minitron-8b")
+assert shapes.applicable(cfg, shapes.SHAPES["train_4k"]) == (True, "")
+model = specs.build_model(cfg, device="cpu")
+with tempfile.TemporaryDirectory() as root:
+    tr = trainer.Trainer(model, optimizer.AdamWConfig(), trainer.TrainerConfig(
+        total_steps=1, ckpt_dir=root, handle_signals=False),
+        loader.TokenBatches(cfg.vocab_size, batch=2, seq=16))
+    out = tr.run(0)
+    assert out["final_step"] == 1 and checkpoint.latest_step(root) == 1
+    out = train_launcher.main(["--arch", "minitron-8b", "--device", "cpu", "--steps", "1",
+                               "--rows", "64", "--ckpt-dir", root + "/launcher"])
+    assert out["final_step"] == 1
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
 """
@@ -107,8 +126,9 @@ def test_runs_without_jax_or_repro_in_sys_modules():
     LM prefill and a served request, the streaming service with its chunk
     cache and the --piper-stream launcher, the row-wise baseline and DLRM
     training fed by the service (the loader's prefetcher, the input
-    pipeline, the e2e launcher), in a process that never imports JAX or the
-    JAX package."""
+    pipeline, the e2e launcher), and LM training (the shapes, build_model,
+    a Trainer step and its checkpoint, the training launcher), in a process
+    that never imports JAX or the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _RUN_PORT_ONLY], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=300, check=True,
@@ -147,10 +167,11 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
 def test_lm_entry_points_default_to_the_card(monkeypatch):
     """LM, ServeEngine (on an LM built with the defaults),
-    lm_params_from_numpy and the serve launcher run on the card unless told
-    otherwise, and raise without one."""
+    lm_params_from_numpy, build_model, the serve and train launchers and
+    the launcher's Piper tokens run on the card unless told otherwise, and
+    raise without one."""
     from repro_torch import configs, interop
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, specs, train
     from repro_torch.models import lm
     from repro_torch.serve import engine
 
@@ -165,6 +186,12 @@ def test_lm_entry_points_default_to_the_card(monkeypatch):
         interop.lm_params_from_numpy(tree, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "gemma-2b", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "gemma-2b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        specs.build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.preprocess_tokens(64)
 
 
 def test_streaming_service_defaults_to_the_card(monkeypatch):

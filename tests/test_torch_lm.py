@@ -90,7 +90,7 @@ def test_configs_match_the_reference():
         jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
         assert jd == td
     with pytest.raises(KeyError, match="queue 1 item 10"):
-        tconfigs.get("minitron-8b")
+        tconfigs.get("hymba-1.5b")
 
 
 def test_param_count_matches_the_reference():
