@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,golden,main,stream,train,serve,e2e,lm_train]
+    python3 chip_smoke.py [--phases kernels,golden,main,sharded,stream,train,serve,e2e,lm_train]
                           [--out results.json]
     python3 chip_smoke.py --rehearse      # plumbing only, on the CPU
 
@@ -36,6 +36,24 @@ Phases, each of which passes or ends the run with a non-zero exit:
      these runs and read after; a kernel of the path that never launched
      fails the run, and so does a bytes-in chunk that launched anything but
      one bytes-in kernel per loop.
+  4b. sharded — the sharded engines at CRITEO and CRITEO_1M, every shard on
+     the one card: the row-parallel ShardedPiperPipeline at 1, 2, 4 and 8
+     shards on the utf8 decoded, utf8 bytes-in, binary (the first 2^20
+     rows of the main phase's table) and counts routes, and the crossed
+     plan at 4 shards at 5K, each held with torch.equal to the
+     single-device PiperPipeline on the same chunk sequence (run_scan and
+     transform_scan outputs, padding rows included; build_vocab_scan; the
+     merged state, counts included); the column-parallel ShardedPiper on
+     ('data', 'model') 2x4 and ('pod', 'data', 'model') 2x2x2, held on the
+     valid rows and the first 26 columns, with every padding column 0 and
+     the vocabulary's first 26 rows equal to the single-device table; its
+     genvocab and apply_vocab blocks against their plain versions. Every
+     launch count is exact (one loop-① and one loop-② kernel per chunk and
+     shard, pad chunks included, plus decode; per ShardedPiper step and
+     position one decode a loop, one genvocab, one apply_vocab, one
+     dense_transform). Prints wall seconds and rows/s of each loop per shard
+     count, the merge tree's device ms at 8 shards beside its bound, and
+     ShardedPiper's finalize ms.
   5. train — Piper → DLRM training at CONFIG_5K and CONFIG_1M (full width,
      batches of 4096 rows, AdamW with global-norm clipping, TF32 off):
      run_stream over the utf8 feed with the default hints, its valid rows
@@ -138,6 +156,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -190,6 +209,34 @@ SERVE_KERNELS = ("flash_attention",)
 # routes, and absorb's loop ① (with the count plane on the utf8 route).
 STREAM_KERNELS = ("decode_scan", "fused_transform", "fused_decode_transform", "fused_genvocab",
                   "fused_genvocab_slabs", "fused_decode_genvocab")
+# The sharded phase: the row-parallel ShardedPiperPipeline at each shard
+# count on every route below (and the crossed plan at one count, at 5K),
+# the column-parallel ShardedPiper on each mesh below, at both vocab
+# ranges, over the main phase's utf8 feed and the first SHARDED_BINARY_ROWS
+# rows of its binary table. Every shard runs on the one card.
+SHARD_COUNTS = (1, 2, 4, 8)
+# route → (feed, config fields, the kernels each chunk launches in loop ①,
+# in loop ②), decode included
+SHARDED_ROUTES = {
+    "utf8": ("utf8", {}, ("decode_scan", "fused_genvocab"), ("decode_scan", "fused_transform")),
+    "utf8_bytes_in": ("utf8", {"use_fused_decode": True}, ("fused_decode_genvocab",),
+                      ("fused_decode_transform",)),
+    "binary": ("binary", {}, ("fused_genvocab",), ("fused_transform",)),
+    "utf8_counts": ("utf8", {"track_vocab_counts": True},
+                    ("decode_scan", "fused_genvocab_slabs"), ("decode_scan", "fused_transform")),
+}
+SHARDED_CROSSED = ("crossed_utf8_fused", 4, "5K")  # route, shards, range
+SHARDED_BINARY_ROWS = 1 << 20
+# A rehearsal's feeds: utf8 rows, binary rows, chunk bytes, rows a chunk.
+SHARDED_REHEARSAL = (800, 2000, 1 << 15, 256)
+COLUMN_MESHES = {"2x4": ((2, 4), ("data", "model")),
+                 "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+SHARDED_NOTE = ("every shard runs on the one card, one after another on one stream: rows/s "
+                "across shard counts is not a scaling result")
+# The sharded phase's path: both engines' kernels.
+SHARDED_KERNELS = ("decode_scan", "fused_genvocab", "fused_genvocab_slabs", "fused_transform",
+                   "fused_decode_genvocab", "fused_decode_transform", "genvocab", "apply_vocab",
+                   "dense_transform")
 # The stream phase: the service's default buckets over the first 2^18 rows
 # of each feed (the vocabulary from the first half, requests over the
 # second), request sizes of 1..STREAM_MAX_REQUEST rows from a seeded
@@ -1679,6 +1726,259 @@ class Smoke:
         return launches
 
 
+    # -- phase 4b ------------------------------------------------------- #
+    def _counted(self, kernels: dict, launches: dict, fn):
+        """Run ``fn`` with every counter at 0 before it; its result, wall
+        seconds and the launches it made (also added to ``launches``)."""
+        reset_counters(kernels)
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        self.sync()
+        seconds = time.perf_counter() - t0
+        got = {name: k.launches for name, k in kernels.items() if k.launches}
+        for name, n in got.items():
+            launches[name] += n
+        return out, seconds, got
+
+    def sharded(self, data, tag: str, vocab_range: int) -> dict:
+        """The sharded engines at one vocab range: the row-parallel engine
+        on every route and shard count, the column-parallel one on each
+        mesh, each held to the single-device engine on the same chunks.
+        Returns kernel → launches over the phase's runs. Prints what it
+        measured, also when a check fails."""
+        result = {"phase": "sharded", "schema": tag, "vocab_range": vocab_range,
+                  "card": self.smi, "note": SHARDED_NOTE}
+        kernels = counters()
+        launches = dict.fromkeys(kernels, 0)
+        try:
+            self._row_parallel(data, tag, vocab_range, kernels, launches, result)
+            self._column_parallel(data, tag, vocab_range, kernels, launches, result)
+            return launches
+        finally:
+            result["launches"] = launches
+            emit(result)
+
+    def _same_state(self, got, want, what: str) -> None:
+        torch = self.torch
+        for f in ("first_pos", "rows_seen", "counts"):
+            a, b = getattr(got, f), getattr(want, f)
+            expect((a is None and b is None) or (a is not None and b is not None
+                                                 and torch.equal(a, b)),
+                   f"{what}: merged state's {f} differs from the single-device engine's")
+
+    def _same_table(self, got, want, what: str) -> None:
+        torch = self.torch
+        for f in ("label", "dense", "sparse", "valid"):
+            expect(torch.equal(getattr(got, f), getattr(want, f)),
+                   f"{what}: {f} differs from the single-device engine's")
+
+    def _sharded_feeds(self, data) -> dict:
+        """The phase's feeds: the main phase's utf8 buffer and the first
+        SHARDED_BINARY_ROWS rows of its binary table, in CHUNK_BYTES chunks
+        of at most MAX_ROWS rows; a rehearsal cuts both to
+        SHARDED_REHEARSAL's rows in smaller chunks."""
+        if self.rehearse:
+            rows_u, rows_b, cb, mr = SHARDED_REHEARSAL
+        else:
+            rows_u, rows_b, cb, mr = data["utf8_rows"], SHARDED_BINARY_ROWS, CHUNK_BYTES, MAX_ROWS
+        rows_u, rows_b = min(rows_u, data["utf8_rows"]), min(rows_b, data["binary_rows"])
+        end = int(data["utf8_spans"][rows_u - 1][1])
+        return {"buf": data["utf8_buf"][:end], "utf8_rows": rows_u,
+                "binary": {k: v[:rows_b] for k, v in data["binary"].items()},
+                "binary_rows": rows_b, "chunk_bytes": cb, "max_rows": mr}
+
+    def _row_parallel(self, data, tag, vocab_range, kernels, launches, result) -> None:
+        torch, np = self.torch, self.np
+        from repro_torch.core import pipeline as P, plan as plan_lib
+        from repro_torch.core import schema as schema_lib, sharded_pipeline as SP
+        from repro_torch.core import vocab as vocab_lib
+        from repro_torch.data import loader
+        from repro_torch.distributed import sharding
+        from repro_torch.launch import mesh as mesh_lib
+
+        sch = dataclasses.replace(schema_lib.CRITEO, vocab_range=vocab_range)
+        feeds = self._sharded_feeds(data)
+        cb = feeds["chunk_bytes"]
+        base = P.PipelineConfig(schema=sch, chunk_bytes=cb, max_rows_per_chunk=feeds["max_rows"],
+                                device=str(self.dev))
+        result["feeds"] = {"utf8_rows": feeds["utf8_rows"], "binary_rows": feeds["binary_rows"],
+                           "binary_rows_cut_from": data["binary_rows"], "chunk_bytes": cb,
+                           "max_rows": feeds["max_rows"]}
+        routes = dict(SHARDED_ROUTES)
+        runs = [(route, n) for route in routes for n in SHARD_COUNTS]
+        crossed, crossed_n, crossed_tag = SHARDED_CROSSED
+        if tag == crossed_tag:
+            routes[crossed] = ("utf8", {"plan": plan_lib.crossed_criteo(sch)},
+                               ("decode_scan", "fused_genvocab"),
+                               ("decode_scan", "fused_transform"))
+            runs.append((crossed, crossed_n))
+        for route, n in runs:
+            feed, fields, k1, k2 = routes[route]
+            cfg = dataclasses.replace(base, input_format=feed, **fields)
+            if feed == "utf8":
+                f = loader.TabularChunkFeed(feeds["buf"], cb, n)
+                flat, rows = f.stacked.reshape(-1, cb), feeds["utf8_rows"]
+                chunks = list(flat)
+            else:
+                f = loader.BinaryChunkFeed(feeds["binary"], feeds["max_rows"], n)
+                flat, rows = f.flat_chunks(), feeds["binary_rows"]
+                chunks = [{k: v[i] for k, v in flat.items()} for i in range(len(flat["label"]))]
+            mesh = mesh_lib.make_data_mesh(n, device=str(self.dev))
+            eng = SP.ShardedPiperPipeline(cfg, mesh)
+            cs, os_ = sharding.put_shard_feed(*f.shard_stacks(), mesh)
+            total = f.n_steps * n  # chunks, pad chunks included
+            what = f"{tag} sharded {route} x{n}"
+            counted = functools.partial(self._counted, kernels, launches)
+            state, s1, l1 = counted(lambda: eng.build_state_scan(cs, os_))
+            voc, _, lv = counted(lambda: eng.build_vocab_scan(cs, os_))
+            out, s2, l2 = counted(lambda: eng.transform_scan(voc, cs))
+            scan, s_scan, l_scan = counted(lambda: eng.run_scan(cs, os_))
+
+            single = P.PiperPipeline(cfg)
+            self._same_state(state, single.build_state_stream(chunks), what)
+            voc_1 = single.build_vocab_scan(flat)
+            expect(torch.equal(voc.table, voc_1.table) and torch.equal(voc.sizes, voc_1.sizes),
+                   f"{what}: build_vocab_scan differs from the single-device engine's")
+            want = P.flatten_processed(single.transform_scan(voc_1, flat))
+            self._same_table(SP.flatten_sharded(out), want, f"{what} transform_scan")
+            self._same_table(SP.flatten_sharded(scan), want, f"{what} run_scan")
+            del out, scan, want
+            if not self.rehearse:
+                each = lambda names: {k: total * names.count(k) for k in names}  # noqa: E731
+                for loop, got, exp in (("loop ①", l1, each(k1)), ("build_vocab_scan", lv, each(k1)),
+                                       ("loop ②", l2, each(k2)),
+                                       ("run_scan", l_scan, each(k1 + k2))):
+                    expect(got == exp, f"{what} {loop}: launched {got}, expected {exp}")
+            # each loop again, warm, for its spread
+            rep1 = self.wall_seconds(lambda: eng.build_state_scan(cs, os_), n=3)
+            rep2 = self.wall_seconds(lambda: eng.transform_scan(voc, cs), n=3)
+            rec = {"chunks": total, "steps": f.n_steps, "rows": rows,
+                   "routes": {"loop1": eng._loop1_labels["route"],
+                              "loop2": eng._loop2_labels["route"]},
+                   "loop1_s": s1, "loop1_repeat_s": rep1,
+                   "loop1_rows_per_s_median": rows / statistics.median(rep1),
+                   "loop2_s": s2, "loop2_repeat_s": rep2,
+                   "loop2_rows_per_s_median": rows / statistics.median(rep2),
+                   "run_scan_s": s_scan, "run_scan_rows_per_s": rows / s_scan,
+                   "run_scan_launches": l_scan}
+            if route == "utf8" and n == max(SHARD_COUNTS):
+                rec["merge_tree"] = self._merge_tree_ms(eng, cs, os_)
+            result.setdefault(route, {})[f"x{n}"] = rec
+            del state, voc, voc_1, cs, os_, eng
+
+    def _merge_tree_ms(self, eng, cs, os_) -> dict:
+        """Device ms of the merge tree over the engine's per-shard states,
+        beside its bound: each halving level reads two states and writes
+        one for each merge."""
+        from repro_torch.core import sharded_pipeline as SP, vocab as vocab_lib
+
+        states = eng.shard_states(cs, os_)
+        stacked = SP.stack_states(states, eng.devices[0])
+        n = int(stacked.first_pos.shape[0])
+        state_bytes = stacked.first_pos[0].numel() * 4 + 4
+        moved, p = 0, 1 << max(n - 1, 0).bit_length()
+        while p > 1:
+            p //= 2
+            moved += 3 * p * state_bytes
+        t = self.time_ms(lambda: vocab_lib.merge_tree(stacked), reps=10)
+        stack_ms = self.event_ms(lambda: SP.stack_states(states, eng.devices[0]), reps=3,
+                                 warmup=1)
+        bound_ms, bound_by = bound(moved, 0)
+        return {"shards": n, "state_bytes": state_bytes, "bytes_moved": moved,
+                "ms": t["device_ms"], "call_ms": t["call_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "stack_states_call_ms": stack_ms}
+
+    def _column_parallel(self, data, tag, vocab_range, kernels, launches, result) -> None:
+        torch = self.torch
+        from repro_torch.core import pipeline as P, schema as schema_lib, sharded as Sh
+        from repro_torch.core import vocab as vocab_lib
+        from repro_torch.data import loader
+        from repro_torch.kernels.vocab import ops as vops, ref as vref
+        from repro_torch.launch import mesh as mesh_lib
+
+        sch = dataclasses.replace(schema_lib.CRITEO, vocab_range=vocab_range)
+        feeds = self._sharded_feeds(data)
+        cb = feeds["chunk_bytes"]
+        cfg = P.PipelineConfig(schema=sch, chunk_bytes=cb, max_rows_per_chunk=feeds["max_rows"],
+                               device=str(self.dev))
+        single = P.PiperPipeline(cfg)
+        counted = functools.partial(self._counted, kernels, launches)
+        for name, (shape, axes) in COLUMN_MESHES.items():
+            eng = Sh.ShardedPiper(cfg, mesh_lib.make_mesh(shape, axes, devices=str(self.dev)))
+            f = loader.TabularChunkFeed(feeds["buf"], cb, eng.n_row_shards)
+            chunks = torch.from_numpy(f.stacked).to(self.dev)
+            offs = torch.from_numpy(f.offsets).to(self.dev)
+            what = f"{tag} ShardedPiper {name}"
+
+            def loop1():
+                state = eng.init_state()
+                for i in range(f.n_steps):
+                    state = eng.vocab_step(state, chunks[i], offs[i])
+                return state
+
+            state, s1, l1 = counted(loop1)
+            fin = self.time_ms(lambda: eng.finalize(state), reps=5, warmup=1)
+            vocab = eng.finalize(state)
+            table = eng.stacked_vocabulary(vocab)
+            out, s_scan, l_scan = counted(lambda: eng.run_scan(chunks, offs))
+
+            flat = f.stacked.reshape(-1, cb)
+            voc_1 = single.build_vocab_scan(flat)
+            want = P.flatten_processed(single.transform_scan(voc_1, flat))
+            n_sp = sch.n_sparse
+            expect(torch.equal(table.table[:n_sp], voc_1.table)
+                   and torch.equal(table.sizes[:n_sp], voc_1.sizes),
+                   f"{what}: the vocabulary's first {n_sp} rows differ from the single-device "
+                   "table")
+            v = out.valid.reshape(-1)
+            sparse = out.sparse.reshape(-1, eng.cols_pad)
+            expect(torch.equal(v, want.valid), f"{what}: valid differs")
+            expect(torch.equal(sparse[v, :n_sp], want.sparse[v]), f"{what}: sparse ids differ")
+            expect(not bool(sparse[:, n_sp:].any()), f"{what}: a padding column is not 0")
+            expect(torch.equal(out.label.reshape(-1)[v], want.label[v]), f"{what}: labels differ")
+            expect(torch.equal(out.dense.reshape(-1, sch.n_dense)[v], want.dense[v]),
+                   f"{what}: dense differs")
+            checks = self._column_kernel_checks(eng, chunks, offs, vocab, vops, vref, vocab_lib)
+            positions = eng.n_row_shards * eng.model_size
+            if not self.rehearse:
+                per = f.n_steps * positions
+                for loop, got, exp in (
+                        ("loop ①", l1, {"decode_scan": per, "genvocab": per}),
+                        ("run_scan", l_scan, {"decode_scan": 2 * per, "genvocab": per,
+                                              "apply_vocab": per, "dense_transform": per})):
+                    expect(got == exp, f"{what} {loop}: launched {got}, expected {exp}")
+            rows = feeds["utf8_rows"]
+            result.setdefault("column_parallel", {})[name] = {
+                "mesh": dict(zip(axes, shape)), "cols_pad": eng.cols_pad,
+                "cols_local": eng.cols_local, "steps": f.n_steps, "positions": positions,
+                "loop1_s": s1, "loop1_rows_per_s": rows / s1,
+                "finalize_ms": fin["device_ms"], "finalize_call_ms": fin["call_ms"],
+                "run_scan_s": s_scan, "run_scan_rows_per_s": rows / s_scan,
+                "run_scan_launches": l_scan, "kernel_checks": checks}
+            del state, vocab, out, want
+
+    def _column_kernel_checks(self, eng, chunks, offs, vocab, vops, vref, vocab_lib) -> dict:
+        """genvocab and apply_vocab at ShardedPiper's block shape (the last
+        model shard's columns, padding included, of the first chunk) against
+        their plain versions on the same inputs; uncounted."""
+        torch = self.torch
+        m = eng.model_size - 1
+        dev = eng.devices[0][m]
+        local, batch = eng._local(chunks[0][0], dev, m)
+        fp = eng.init_state()[0][m]
+        pos = vocab_lib.positions(offs[0][0], local.shape[0], batch.valid)
+        want_fp = vref.genvocab(fp.clone(), local.t(), pos)
+        got_fp = vops.genvocab_update(vocab_lib.VocabState(fp, offs[0][0]), local,
+                                      batch.valid).first_pos
+        want_ids = vref.apply_vocab(vocab[0][m].table, local.t()).t()
+        got_ids = vops.apply_vocab(vocab[0][m].table, local)
+        expect(torch.equal(got_fp, want_fp), "ShardedPiper block: genvocab differs from plain")
+        expect(torch.equal(got_ids, want_ids), "ShardedPiper block: apply_vocab differs from plain")
+        err = lambda a, b: int((a.long() - b.long()).abs().max()) if a.numel() else 0  # noqa: E731
+        return {"shape": list(local.shape), "genvocab_max_abs_err": err(got_fp, want_fp),
+                "apply_vocab_max_abs_err": err(got_ids, want_ids)}
+
     # -- phase 7 -------------------------------------------------------- #
     def stream(self, data, tag: str, vocab_range: int) -> dict:
         """The streaming service at one vocab range on every stream route.
@@ -3140,7 +3440,8 @@ def make_data(np, rows: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,golden,main,stream,train,serve,e2e,lm_train")
+    ap.add_argument("--phases",
+                    default="kernels,golden,main,sharded,stream,train,serve,e2e,lm_train")
     ap.add_argument("--out", default=None,
                     help="also write the kernel summary and every printed record to this JSON file")
     ap.add_argument("--rehearse", action="store_true",
@@ -3163,9 +3464,10 @@ def main(argv=None) -> int:
     smoke = Smoke(torch, np, args.rehearse)
     device = smoke.device()
     records, main_launches, train_launches, serve_launches = {}, None, None, None
-    stream_launches = e2e_launches = lm_launches = None
+    stream_launches = e2e_launches = lm_launches = sharded_launches = None
     rows = REHEARSAL_ROWS if args.rehearse else ROWS
-    data = (make_data(np, rows) if phases & {"kernels", "main", "stream", "train", "serve", "e2e"}
+    data = (make_data(np, rows)
+            if phases & {"kernels", "main", "sharded", "stream", "train", "serve", "e2e"}
             else None)
     if "kernels" in phases:
         records = smoke.kernels(data)
@@ -3177,6 +3479,13 @@ def main(argv=None) -> int:
             for name in PATH_KERNELS:
                 expect(sum(m[name] for m in main_launches.values()) > 0,
                        f"main path: {name} was never launched")
+    if "sharded" in phases:
+        ranges = REHEARSAL_RANGES if args.rehearse else RANGES
+        sharded_launches = {tag: smoke.sharded(data, tag, vr) for tag, vr in ranges.items()}
+        if not args.rehearse:
+            for name in SHARDED_KERNELS:
+                expect(all(m[name] > 0 for m in sharded_launches.values()),
+                       f"sharded path: {name} was not launched at every range")
     if "stream" in phases:
         ranges = REHEARSAL_RANGES if args.rehearse else RANGES
         stream_launches = {tag: smoke.stream(data, tag, vr) for tag, vr in ranges.items()}
@@ -3212,10 +3521,10 @@ def main(argv=None) -> int:
                 expect(lm_launches["lm_train"][name] > 0, f"lm_train path: {name} was never "
                        "launched")
 
-    # launches on the paths: the main, stream, train and e2e phases' per
-    # range, the serve phase's per prefill, the lm_train phase's
-    paths = [m for m in (main_launches, stream_launches, train_launches, serve_launches,
-                         e2e_launches, lm_launches) if m is not None]
+    # launches on the paths: the main, sharded, stream, train and e2e phases'
+    # per range, the serve phase's per prefill, the lm_train phase's
+    paths = [m for m in (main_launches, sharded_launches, stream_launches, train_launches,
+                         serve_launches, e2e_launches, lm_launches) if m is not None]
     kernels = []
     for key, rec in records.items():
         name, _, tag = key.partition("@")
@@ -3234,8 +3543,9 @@ def main(argv=None) -> int:
                                    "kernels_per_call")
                if k in rec},
             "launch_floor_ms": rec.get("launch_floor_ms", smoke.floor_ms),
-            "on_main_path": name in (PATH_KERNELS + STREAM_KERNELS + TRAIN_KERNELS
-                                     + SERVE_KERNELS + E2E_KERNELS + LM_TRAIN_KERNELS),
+            "on_main_path": name in (PATH_KERNELS + SHARDED_KERNELS + STREAM_KERNELS
+                                     + TRAIN_KERNELS + SERVE_KERNELS + E2E_KERNELS
+                                     + LM_TRAIN_KERNELS),
             "shape": rec["shape"],
         })
     seconds = time.perf_counter() - t_start

@@ -25,8 +25,8 @@ after step *i+1* is enqueued, and always before a save. While the
 process tracer is on (:mod:`repro_torch.obs`), each save's snapshot is the
 span ``train/checkpoint`` and the wait for its write at the end of
 :meth:`Trainer.run` ``train/checkpoint_wait``. The mesh and sharding
-arguments belong to the sharded slice (ROADMAP queue 1 item 4) and raise
-if given.
+arguments come with the parameter rules of ``distributed/sharding.py``
+(ROADMAP queue 1 item 10) and raise if given.
 """
 
 from __future__ import annotations
@@ -77,8 +77,8 @@ class Trainer:
     ):
         if mesh is not None or shardings is not None:
             raise NotImplementedError(
-                "Trainer(mesh=..., shardings=...): sharded training comes with the sharded "
-                "engines (ROADMAP queue 1 item 4)")
+                "Trainer(mesh=..., shardings=...): sharded training comes with the parameter "
+                "rules of distributed/sharding.py (ROADMAP queue 1 item 10)")
         self.model = model
         self.opt_cfg = opt_cfg
         self.cfg = cfg

@@ -1737,3 +1737,98 @@ def test_input_pipeline_batches_equal_across_overlap_on_the_card(cuda):
         for k in ("label", "sparse"):
             assert torch.equal(a[k].cpu(), c[k]), k
         torch.testing.assert_close(a["dense"].cpu(), c["dense"], rtol=1e-6, atol=0)
+
+
+# --------------------------------------------------------------------- #
+# the sharded engines: every shard on cuda:0, against the CPU path
+# --------------------------------------------------------------------- #
+
+SHARDED_ROUTES = {"utf8": ("utf8", {}), "utf8_bytes_in": ("utf8", {"use_fused_decode": True}),
+                  "binary": ("binary", {}), "utf8_counts": ("utf8", {"track_vocab_counts": True})}
+
+
+def _sharded_feed(feed, n_shards):
+    from repro_torch.data import loader
+
+    buf, table = synth.make_dataset(synth.SynthConfig(rows=600, seed=11))
+    if feed == "utf8":
+        return loader.TabularChunkFeed(buf, 8192, n_shards).shard_stacks()
+    return loader.BinaryChunkFeed(table, 128, n_shards).shard_stacks()
+
+
+def _assert_outputs_match(card, cpu):
+    for f in ("label", "sparse", "valid"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    torch.testing.assert_close(card.dense.cpu(), cpu.dense, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n_shards", [1, 3, 8])
+@pytest.mark.parametrize("route", list(SHARDED_ROUTES))
+def test_row_parallel_on_card_equals_cpu(cuda, route, n_shards):
+    """ShardedPiperPipeline with every shard on cuda:0 (the kernels of each
+    route) gives the CPU path's merged state and outputs, pad chunks
+    included: integers bit for bit, dense at rtol 1e-6."""
+    from repro_torch.core import sharded_pipeline as SP
+    from repro_torch.launch import mesh as tmesh
+
+    feed, fields = SHARDED_ROUTES[route]
+    stacks, offsets = _sharded_feed(feed, n_shards)
+    got = {}
+    for device in ("cuda", "cpu"):
+        cfg = P.PipelineConfig(chunk_bytes=8192, max_rows_per_chunk=128, input_format=feed,
+                               device=device, **fields)
+        eng = SP.ShardedPiperPipeline(cfg, tmesh.make_data_mesh(n_shards, device=device))
+        assert {d.type for d in eng.devices} == {device}
+        got[device] = (eng.build_state_scan(stacks, offsets), eng.run_scan(stacks, offsets))
+    (card_state, card_out), (cpu_state, cpu_out) = got["cuda"], got["cpu"]
+    for f in ("first_pos", "rows_seen", "counts"):
+        a, b = getattr(card_state, f), getattr(cpu_state, f)
+        assert (a is None and b is None) or torch.equal(a.cpu(), b), f
+    _assert_outputs_match(card_out, cpu_out)
+
+
+@pytest.mark.parametrize("shape,axes", [((2, 4), ("data", "model")),
+                                        ((2, 2, 2), ("pod", "data", "model"))],
+                         ids=["2x4", "2x2x2"])
+def test_column_parallel_on_card_equals_cpu(cuda, shape, axes):
+    """ShardedPiper with every position on cuda:0 (decode, genvocab,
+    apply_vocab and dense_transform a position and step) gives the CPU
+    path's stacked state, vocabulary and outputs."""
+    from repro_torch.core import sharded as Sh
+    from repro_torch.data import loader
+    from repro_torch.launch import mesh as tmesh
+
+    buf, _ = synth.make_dataset(synth.SynthConfig(rows=600, seed=11))
+    got = {}
+    for device in ("cuda", "cpu"):
+        cfg = P.PipelineConfig(chunk_bytes=8192, max_rows_per_chunk=128, device=device)
+        eng = Sh.ShardedPiper(cfg, tmesh.make_mesh(shape, axes, devices=device))
+        feed = loader.TabularChunkFeed(buf, 8192, eng.n_row_shards)
+        state = eng.init_state()
+        for i in range(feed.n_steps):
+            state = eng.vocab_step(state, feed.stacked[i], feed.offsets[i])
+        voc = eng.stacked_vocabulary(eng.finalize(state))
+        got[device] = (eng.stacked_state(state), voc, eng.run_scan(feed.stacked, feed.offsets))
+    (cs, cv, co), (ps, pv, po) = got["cuda"], got["cpu"]
+    assert torch.equal(cs.cpu(), ps)
+    assert torch.equal(cv.table.cpu(), pv.table) and torch.equal(cv.sizes.cpu(), pv.sizes)
+    _assert_outputs_match(co, po)
+
+
+def test_all_reduce_state_over_gloo_on_the_card(cuda, tmp_path):
+    """Two processes, each with its local state on cuda:0, merged by
+    all_reduce_state over gloo (NCCL refuses two ranks on one device):
+    every rank ends with the single-process merge on the card."""
+    from repro_torch.core import sharded_pipeline as SP
+    from repro_torch.launch import mesh as tmesh
+    from torch_ranks import run_ranks  # tests/ is on sys.path (pytest prepends it)
+
+    stacks, offsets = _sharded_feed("utf8", 2)
+    cfg = P.PipelineConfig(chunk_bytes=8192, max_rows_per_chunk=128, device="cuda",
+                           track_vocab_counts=True)
+    want = SP.ShardedPiperPipeline(cfg, tmesh.make_data_mesh(2)).build_state_scan(stacks, offsets)
+    for got in run_ranks(2, stacks, offsets, tmp_path, chunk_bytes=8192, max_rows=128,
+                         device="cuda"):
+        assert np.array_equal(got["first_pos"], want.first_pos.cpu().numpy())
+        assert np.array_equal(got["rows_seen"], want.rows_seen.cpu().numpy())
+        assert np.array_equal(got["counts"], want.counts.cpu().numpy())

@@ -110,6 +110,18 @@ with tempfile.TemporaryDirectory() as root:
     out = train_launcher.main(["--arch", "minitron-8b", "--device", "cpu", "--steps", "1",
                                "--rows", "64", "--ckpt-dir", root + "/launcher"])
     assert out["final_step"] == 1
+# the sharded engines: row-parallel and column-parallel, on CPU meshes
+from repro_torch.core import sharded, sharded_pipeline
+from repro_torch.distributed import sharding
+from repro_torch.launch import mesh as mesh_lib
+
+mesh = mesh_lib.make_data_mesh(2, device="cpu")
+feed = loader.TabularChunkFeed(buf, 8192, 2)
+cs, os_ = sharding.put_shard_feed(*feed.shard_stacks(), mesh)
+out = sharded_pipeline.ShardedPiperPipeline(pc, mesh).run_scan(cs, os_)
+assert int(sharded_pipeline.flatten_sharded(out).valid.sum()) == 50
+eng = sharded.ShardedPiper(pc, mesh_lib.make_mesh((2, 2), ("data", "model"), devices="cpu"))
+assert int(eng.run_scan(feed.stacked, feed.offsets).valid.sum()) == 50
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
 """
@@ -126,9 +138,10 @@ def test_runs_without_jax_or_repro_in_sys_modules():
     LM prefill and a served request, the streaming service with its chunk
     cache and the --piper-stream launcher, the row-wise baseline and DLRM
     training fed by the service (the loader's prefetcher, the input
-    pipeline, the e2e launcher), and LM training (the shapes, build_model,
-    a Trainer step and its checkpoint, the training launcher), in a process
-    that never imports JAX or the JAX package."""
+    pipeline, the e2e launcher), LM training (the shapes, build_model,
+    a Trainer step and its checkpoint, the training launcher), and both
+    sharded engines' run_scan on CPU meshes, in a process that never imports
+    JAX or the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _RUN_PORT_ONLY], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=300, check=True,
@@ -210,6 +223,24 @@ def test_streaming_service_defaults_to_the_card(monkeypatch):
         serve.main(["--piper-stream", "--rows", "64"])
 
 
+def test_data_mesh_defaults_to_the_card(monkeypatch):
+    """make_data_mesh and make_mesh put their positions on the card unless
+    told otherwise (shard k on cuda:{k % device_count}), and raise without
+    one."""
+    from repro_torch.launch import mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert mesh.make_data_mesh().devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert mesh.make_data_mesh(3).devices == tuple(torch.device("cuda", k % 2) for k in range(3))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_data_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh((2, 2), ("data", "model"))
+    assert mesh.make_data_mesh(device="cpu").devices == (torch.device("cpu"),)
+
+
 def test_kernel_wrappers_refuse_non_cuda_tensors():
     """The launch path checks its tensors; a CPU tensor never reaches it
     (the wrapper routes it to the plain version before)."""
@@ -242,3 +273,13 @@ def test_chip_smoke_rehearsal_golden():
     )
     assert r.returncode == 0, r.stderr
     assert '"phase": "golden"' in r.stdout and '"ok": true' not in r.stdout.splitlines()[-1]
+
+
+def test_chip_smoke_rehearsal_sharded():
+    """The smoke script's sharded phase, rehearsed on the CPU."""
+    r = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--rehearse", "--phases", "sharded"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert '"phase": "sharded"' in r.stdout and '"ok": true' not in r.stdout.splitlines()[-1]

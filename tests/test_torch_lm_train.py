@@ -390,7 +390,7 @@ def test_trainer_contract(contract, tmp_path):
 
 def test_trainer_refuses_a_mesh():
     cfg, model = _tiny_model()
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         ttrainer.Trainer(model, topt.AdamWConfig(), ttrainer.TrainerConfig(), lambda s: {},
                          mesh=object())
 
