@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels,golden,main,sharded,stream,train,serve,e2e,lm_train]
+    python3 chip_smoke.py [--phases kernels,golden,main,sharded,stream,train,serve,e2e,lm_train,
+                                    analysis]
                           [--out results.json]
     python3 chip_smoke.py --rehearse      # plumbing only, on the CPU
 
@@ -142,6 +143,20 @@ Phases, each of which passes or ends the run with a non-zero exit:
      deleted). Last, at full width cut to 2 layers, 4 steps uninterrupted
      against 2 steps, a checkpoint, a new Trainer and 2 more: the weights
      and AdamW state must be equal bit for bit.
+
+  10. analysis — the port's static gate (python -m repro_torch.analysis
+     --strict) in-process on the card: planlint, kernelcheck (the shape
+     matrix's routes and launches on the card, the CUDA source audit, every
+     library's launch_accounting against its <library>_launch_config, the
+     ptxas logs), the launch audit (JX301 under sync debug mode "error",
+     the fused-reduction property, in-place train steps) and locklint; any
+     new finding fails the run. Then each audited route at CRITEO (fused
+     with bytes-in, the count plane, use_kernels on the decoded route,
+     4096 rows, bytes-in at max_rows 16384) once under the
+     launch audit: each call's kernel entries must equal its launch
+     counters and the hand-written kernels the profiler sees on the card,
+     exactly. Prints the ptxas table (registers, shared bytes, spills per
+     kernel) and the phase's seconds.
 
 The last lines are the {"kernels": [...]} summary, the nvidia-smi name
 and power limit, and {"ok": true, "device": {...}}. Without a CUDA device,
@@ -303,6 +318,11 @@ LM_LR = 3e-4
 # The lm_train path's kernels: Piper's decoded route in preprocess_tokens
 # (the train steps run the chunked route, which has no kernel).
 LM_TRAIN_KERNELS = ("decode_scan", "fused_genvocab", "fused_transform")
+# The kernels the analysis phase's audited routes launch at CRITEO: the fused
+# and bytes-in routes, the count plane, the use_kernels chain, and decode.
+ANALYSIS_KERNELS = ("decode_scan", "fused_genvocab", "fused_genvocab_slabs", "fused_transform",
+                    "fused_decode_genvocab", "fused_decode_transform", "genvocab",
+                    "apply_vocab", "dense_transform")
 # gemma-2b SMOKE, 3 steps from the same weights and batches, the card
 # against the CPU (bf16 compute, TF32 off): each step's loss and grad norm
 # within rtol 1e-3 (bf16 rounds at other points on the two devices; on an
@@ -3420,6 +3440,102 @@ class Smoke:
         if not self.rehearse:
             torch.cuda.empty_cache()
 
+    # -- phase 10 ------------------------------------------------------- #
+    def analysis(self) -> dict:
+        """The static gate (repro_torch.analysis) on the card: the whole
+        --strict gate in-process; then the audited routes at CRITEO
+        (fused with the bytes-in route, the count plane, use_kernels on the
+        decoded route) once each under the launch audit and sync debug mode, each
+        call's kernel entries held exactly to the launch counters and to the
+        device kernels the profiler sees; every library's launch config
+        against its declaration; the ptxas table. Returns the audited
+        routes' launches under "5K"."""
+        torch = self.torch
+        from repro_torch.analysis import __main__ as gate
+        from repro_torch.analysis import kernelcheck, launch_audit
+        from repro_torch.core import plan as plan_lib
+        from repro_torch.core import plan_compiler
+        from repro_torch.core import schema as schema_lib
+        from repro_torch.kernels import _build
+
+        t0 = time.perf_counter()
+        report_path = ROOT / "build" / "analysis_report.json"
+        report_path.parent.mkdir(parents=True, exist_ok=True)
+        rc = gate.main(["--strict", "--device", str(self.dev), "--json", str(report_path)])
+        report = json.loads(report_path.read_text())
+        gate_s = time.perf_counter() - t0
+        expect(rc == 0 and not report["new"] and not report["stale"],
+               f"analysis: the --strict gate failed: new {report['new']}, stale {report['stale']}")
+        kc = report["stats"]["kernelcheck"]
+        if not self.rehearse:
+            configs = kc["launch_configs"]
+            expect(all(r["equal"] for r in configs), "analysis: a launch_accounting differs from "
+                   "its library's launch_config")
+            libs = {r["library"] for r in configs}
+            expect(libs == set(_build.SOURCES), f"analysis: launch configs compared for {libs}")
+            table = kc["ptxas"]
+            emit({"phase": "analysis_ptxas", "what": "registers, static shared bytes and spill "
+                  "bytes per kernel (nvcc -Xptxas -v)", "nvidia_smi": self.smi, "ptxas": table})
+            flash = [u for lib in table.values() for n, u in lib.items()
+                     if kernelcheck.FLASH_WGMMA_D256 in n]
+            expect(flash and all(u["spill_stores"] == u["spill_loads"] == 0 for u in flash),
+                   f"analysis: the D 256 wgmma kernel spills ({flash})")
+        else:
+            expect(len(report["stats"]["skipped"]) == 3, "analysis: card-only checks ran on the CPU")
+
+        # the audited routes, each call held three ways
+        _, threads = kernelcheck.audit_sources(kernelcheck.read_sources(str(ROOT)))
+        hand = re.compile(r"(?:::|\s)(?:" + "|".join(sorted(threads)) + r")[<(]")
+        kernels = counters()
+        schema = schema_lib.CRITEO
+        routings = {"fused": {"fused": True, "fused_vocab": True, "fused_decode": True},
+                    "counts": {"fused": True, "fused_vocab": True, "track_counts": True},
+                    "kernels": {"use_kernels": True}}
+        launches = {name: 0 for name in kernels}
+        routes = {}
+        for routing, hints in routings.items():
+            compiled = plan_compiler.compile_plan(plan_lib.criteo_default(schema), schema,
+                                                  device=self.dev, **hints)
+            inputs = launch_audit.route_inputs(compiled, 4096)
+            inputs.max_rows = MAX_ROWS
+            calls = launch_audit.hot_path_calls(compiled, inputs)
+            if routing == "kernels":  # the decoded route: decode, then each loop's kernels
+                both = launch_audit.route_calls(compiled, inputs)
+                calls.update(decode_vocab=both["decode_vocab"], decode_xform=both["decode_xform"])
+            found, traced = launch_audit.audit_calls(calls, self.dev, context=routing)
+            expect(not found, f"analysis: {routing}: {[f.render() for f in found]}")
+            for name, call in calls.items():
+                entries = dict(traced[name].entries)
+                reset_counters(kernels)
+                call()
+                self.sync()
+                got = {k: v.launches for k, v in kernels.items() if v.launches}
+                for k, v in got.items():
+                    launches[k] += v
+                rec = {"entries": entries, "launches": got}
+                if not self.rehearse:
+                    expect(sum(got.values()) == sum(entries.values()),
+                           f"analysis: {routing}/{name}: entries {entries}, launches {got}")
+                    for entry, n in entries.items():
+                        made = sum(k.launches for k in _build.ENTRIES[entry])
+                        expect(made == n, f"analysis: {routing}/{name}: {entry} x{n} launched "
+                               f"{made}")
+                    seen = device_kernels(torch, call, calls=5)
+                    on_card = sum(n for k, n in seen.items() if hand.search(" " + k)) / 5
+                    rec["device_kernels"] = on_card
+                    expect(on_card == sum(entries.values()),
+                           f"analysis: {routing}/{name}: {on_card} hand kernels a call on the "
+                           f"card, {entries} entries")
+                routes[f"{routing}/{name}"] = rec
+        seconds = time.perf_counter() - t0
+        emit({"phase": "analysis", "gate_seconds": gate_s, "seconds": seconds,
+              "nvidia_smi": self.smi, "findings": report["summary"],
+              "skipped": report["stats"]["skipped"],
+              "dispatches": report["stats"].get("dispatches"), "routes": routes,
+              "launch_configs_compared": len(kc.get("launch_configs", []))})
+        return {"5K": launches}
+
+
 def make_data(np, rows: dict) -> dict:
     """The main path's feeds, made from fixed seeds."""
     from repro_torch.data import synth
@@ -3441,7 +3557,8 @@ def make_data(np, rows: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="kernels,golden,main,sharded,stream,train,serve,e2e,lm_train")
+                    default="kernels,golden,main,sharded,stream,train,serve,e2e,lm_train,"
+                            "analysis")
     ap.add_argument("--out", default=None,
                     help="also write the kernel summary and every printed record to this JSON file")
     ap.add_argument("--rehearse", action="store_true",
@@ -3465,6 +3582,7 @@ def main(argv=None) -> int:
     device = smoke.device()
     records, main_launches, train_launches, serve_launches = {}, None, None, None
     stream_launches = e2e_launches = lm_launches = sharded_launches = None
+    analysis_launches = None
     rows = REHEARSAL_ROWS if args.rehearse else ROWS
     data = (make_data(np, rows)
             if phases & {"kernels", "main", "sharded", "stream", "train", "serve", "e2e"}
@@ -3521,10 +3639,19 @@ def main(argv=None) -> int:
                 expect(lm_launches["lm_train"][name] > 0, f"lm_train path: {name} was never "
                        "launched")
 
+    if "analysis" in phases:
+        analysis_launches = smoke.analysis()
+        if not args.rehearse:
+            for name in ANALYSIS_KERNELS:
+                expect(analysis_launches["5K"][name] > 0, f"analysis path: {name} was never "
+                       "launched")
+
     # launches on the paths: the main, sharded, stream, train and e2e phases'
-    # per range, the serve phase's per prefill, the lm_train phase's
+    # per range, the serve phase's per prefill, the lm_train phase's, the
+    # analysis phase's audited routes
     paths = [m for m in (main_launches, sharded_launches, stream_launches, train_launches,
-                         serve_launches, e2e_launches, lm_launches) if m is not None]
+                         serve_launches, e2e_launches, lm_launches, analysis_launches)
+             if m is not None]
     kernels = []
     for key, rec in records.items():
         name, _, tag = key.partition("@")
@@ -3545,7 +3672,7 @@ def main(argv=None) -> int:
             "launch_floor_ms": rec.get("launch_floor_ms", smoke.floor_ms),
             "on_main_path": name in (PATH_KERNELS + SHARDED_KERNELS + STREAM_KERNELS
                                      + TRAIN_KERNELS + SERVE_KERNELS + E2E_KERNELS
-                                     + LM_TRAIN_KERNELS),
+                                     + LM_TRAIN_KERNELS + ANALYSIS_KERNELS),
             "shape": rec["shape"],
         })
     seconds = time.perf_counter() - t_start

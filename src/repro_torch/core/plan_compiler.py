@@ -38,8 +38,10 @@ state with ``atomicMin`` and gather the table in device memory. So
 ``"unfused"``, ``decode_vocab_route`` and ``decode_xform_route``
 are ``"bytes/device"`` or ``"decoded"``, and a group's ``route`` is
 ``"fused/device"``, ``"unfused"`` or ``"xla"``. The reference's tier
-arithmetic (``tier``, ``vocab_tier``, ``vocab_slabs``) and
-``static_routes`` are not ported: they feed its TPU VMEM checks.
+arithmetic (``tier``, ``vocab_tier``, ``vocab_slabs``) is not ported: it
+feeds its TPU VMEM checks. :meth:`CompiledPlan.static_routes` is the
+port's route and launch metadata, the one source the analysis pass
+``kernelcheck`` reads.
 
 For ``plan.criteo_default()`` every gather/subset/assembly step below is
 the identity, so the emitted program is the pre-IR hard-coded chain,
@@ -411,6 +413,106 @@ class CompiledPlan:
         output table to device memory at any ``max_rows``, so this takes
         no argument."""
         return BYTES_ROUTE if self.decode_xform_dispatch else "decoded"
+
+    def static_routes(self, *, max_rows: int | None = None) -> dict[str, dict]:
+        """Each dispatch's route, what it launches and its device bytes:
+        ``vocab`` (loop ①), ``xform`` (loop ②) and ``decode_vocab`` (a utf8
+        engine's loop ①), plus ``decode_xform`` (its loop ②) when
+        ``max_rows`` is given. Each entry holds
+
+        - ``route``: the label the obs spans carry (:attr:`vocab_route`,
+          :attr:`xform_route`, :attr:`decode_vocab_route`,
+          :attr:`decode_xform_route`);
+        - ``kernels``: the hand-written kernels a chunk of the dispatch
+          launches, each with its wrapper ``entry``, ``library``, C
+          ``symbol`` and ``__global__`` ``kernel``, its ``elements`` and the
+          ``limit`` the wrapper refuses them at, and, with ``max_rows``, its
+          declared ``launches`` at ``max_rows`` rows (the library's
+          ``launch_accounting``; a utf8 chunk of ``max_rows`` rows holds at
+          most ``max_rows * schema.max_row_bytes`` bytes). A decoded entry
+          lists decode and then the decoded-input half's kernels; a plain
+          route lists none;
+        - ``n_columns`` and ``vocab_range`` of its state or table;
+        - ``bytes``: the device bytes of its ``state_stack``,
+          ``counts_stack`` and ``table_stack``.
+
+        The reference's ``tier``, ``budget`` and VMEM fields have no
+        counterpart: the port has one device-memory route at every range.
+        """
+        from repro_torch.kernels.decode_utf8 import ops as decode_ops
+        from repro_torch.kernels.dense_xform import ops as dense_ops
+        from repro_torch.kernels.fused_decode_vocab import ops as fdv_ops
+        from repro_torch.kernels.fused_decode_xform import ops as fdx_ops
+        from repro_torch.kernels.fused_vocab import ops as fv_ops
+        from repro_torch.kernels.fused_xform import ops as fx_ops
+        from repro_torch.kernels.vocab import ops as vocab_ops
+
+        sch = self.schema
+        vr = self.vocab_range
+        n_vocab, n_apply = self.n_vocab_columns, self._n_apply_columns
+        n_dense = len(self._fused_dense_slots)
+        rows = max_rows
+        n_bytes = None if rows is None else rows * sch.max_row_bytes
+        limit = 2**31
+
+        def kernel(ops_mod, fn, symbol, elements, limit_, *shape):
+            return {
+                "entry": fn.entry_name,
+                "library": fn.kernels[0].source,
+                "symbol": symbol,
+                "elements": elements,
+                "limit": limit_,
+                "launches": None if rows is None else ops_mod.launch_accounting(symbol, *shape),
+            }
+
+        r = rows or 0
+        if self._fused_vocab_dispatch:
+            sym = "fused_genvocab_counts" if self.track_counts else "fused_genvocab"
+            vocab_k = [kernel(fv_ops, fv_ops.fused_update, sym, r * n_vocab, limit, r, n_vocab)]
+        elif self.use_kernels and n_vocab:
+            vocab_k = [kernel(vocab_ops, vocab_ops.genvocab_update, "genvocab", r * n_vocab, limit,
+                              r, n_vocab)]
+        else:
+            vocab_k = []
+        if self._fused_dispatch:
+            xform_k = [kernel(fx_ops, fx_ops.fused_transform, "fused_transform",
+                              r * max(n_apply, n_dense), limit, r, n_apply, n_dense)]
+        elif self.use_kernels and self._apply_slots:
+            xform_k = [kernel(vocab_ops, vocab_ops.apply_vocab, "apply_vocab", r * n_apply, limit,
+                              r, n_apply)]
+            if self._fused_dense_slots:
+                xform_k.append(kernel(dense_ops, dense_ops.dense_transform, "dense_transform",
+                                      r * n_dense, None, r * n_dense, 0))
+        else:
+            xform_k = []
+        cells = r * sch.n_fields
+        decode_k = kernel(decode_ops, decode_ops.decode, "decode_utf8", cells, limit, n_bytes)
+        state_bytes = 4 * n_vocab * vr
+        stacks = {"state_stack": state_bytes,
+                  "counts_stack": state_bytes if self.track_counts else 0,
+                  "table_stack": 0}
+        routes = {
+            "vocab": {"route": self.vocab_route, "kernels": vocab_k, "n_columns": n_vocab,
+                      "vocab_range": vr, "bytes": stacks},
+            "xform": {"route": self.xform_route, "kernels": xform_k, "n_columns": n_apply,
+                      "vocab_range": vr,
+                      "bytes": {"state_stack": 0, "counts_stack": 0, "table_stack": 4 * n_apply * vr}},
+            "decode_vocab": {
+                "route": self.decode_vocab_route,
+                "kernels": ([kernel(fdv_ops, fdv_ops.fused_decode_update, "fused_decode_genvocab",
+                                    cells, limit, n_bytes)]
+                            if self.decode_vocab_dispatch else [decode_k, *vocab_k]),
+                "n_columns": n_vocab, "vocab_range": vr, "bytes": stacks},
+        }
+        if max_rows is not None:
+            routes["decode_xform"] = {
+                "route": self.decode_xform_route,
+                "kernels": ([kernel(fdx_ops, fdx_ops.fused_decode_transform,
+                                    "fused_decode_transform", cells, limit, n_bytes)]
+                            if self.decode_xform_dispatch else [decode_k, *xform_k]),
+                "n_columns": n_apply, "vocab_range": vr,
+                "bytes": routes["xform"]["bytes"]}
+        return routes
 
     def describe(self) -> str:
         head = (

@@ -12,6 +12,7 @@ no CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -145,6 +146,89 @@ class Kernel:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         with _count_lock:  # host threads may launch at once
             self.launches += 1
+
+
+# -- launch accounting ------------------------------------------------ #
+# One launch as a library's ``<library>_launch_config`` reports it (the C
+# struct repro::LaunchRecord in csrc/common.cuh) and as each wrapper
+# module's ``launch_accounting`` declares it: the grid's x, y and z, threads
+# a block, dynamic shared bytes, the dynamic shared bytes the launcher opts
+# in to with cudaFuncSetAttribute (0: none), and the cap the launcher puts on
+# grid x (0: none; a resident wave, or common.cuh's grid_for cap).
+LAUNCH_FIELDS = ("grid_x", "grid_y", "grid_z", "threads", "smem", "opt_in", "cap")
+GRID_CAP = 132 * 16  # common.cuh kGridCap: grid_for's 16 blocks on each of 132 SMs
+_MAX_LAUNCHES = 4
+
+
+def launch_record(kernel: str, grid, threads: int, smem: int = 0, opt_in: int = 0,
+                  cap: int = 0) -> dict:
+    """One declared launch of the ``__global__`` function ``kernel`` (its
+    name as a device trace shows it, without template arguments)."""
+    gx, gy, gz = (tuple(int(g) for g in grid) + (1, 1))[:3]
+    return {"kernel": kernel, "grid_x": gx, "grid_y": gy, "grid_z": gz, "threads": int(threads),
+            "smem": int(smem), "opt_in": int(opt_in), "cap": int(cap)}
+
+
+def grid_for(n: int, threads: int) -> int:
+    """common.cuh ``grid_for``: blocks for a grid-stride loop over ``n``."""
+    return max(1, min(-(-n // threads), GRID_CAP))
+
+
+def launch_config(source: str, entry: int, *args: int, device=None) -> list[dict]:
+    """The launches that C entry point number ``entry`` of ``csrc/<source>.cu``
+    makes at the shape ``args``, as its ``<source>_launch_config`` computes
+    them from the constants its launcher uses, on ``device`` (the current
+    card by default). Builds the library; needs the card."""
+    lib = library(source)
+    fn = getattr(lib, f"{source}_launch_config")
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    fn.argtypes = [INT, i64p, INT, i64p, INT]
+    fn.restype = INT
+    n_f = len(LAUNCH_FIELDS)
+    shape = (ctypes.c_int64 * max(1, len(args)))(*args)
+    out = (ctypes.c_int64 * (n_f * _MAX_LAUNCHES))()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        n = fn(int(entry), shape, len(args), out, _MAX_LAUNCHES)
+    if n < 0:
+        raise ValueError(f"{source}_launch_config refused entry {entry} at {args}")
+    return [dict(zip(LAUNCH_FIELDS, out[i * n_f:(i + 1) * n_f])) for i in range(n)]
+
+
+# -- kernel entries ------------------------------------------------------ #
+class _AuditHook(threading.local):
+    hook = None  # set by analysis.launch_audit while it counts this thread's calls
+
+
+_audit = _AuditHook()
+ENTRIES: dict[str, tuple] = {}  # entry name → the Kernels it launches
+
+
+def entry(*kernels: "Kernel"):
+    """Mark a wrapper as one kernel entry: the call that launches one of
+    ``kernels`` on the card and runs their plain version on the CPU.
+
+    While ``analysis.launch_audit`` counts a call on this thread, each call
+    of the wrapper is one dispatch, named ``<library>.<function>``, and
+    nothing dispatched inside it is counted; otherwise the wrapper runs as
+    it is."""
+
+    def wrap(fn):
+        name = f"{kernels[0].source}.{fn.__name__}"
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            hook = _audit.hook
+            if hook is None:
+                return fn(*args, **kwargs)
+            with hook(name):
+                return fn(*args, **kwargs)
+
+        call.entry_name = name
+        call.kernels = kernels
+        ENTRIES[name] = kernels
+        return call
+
+    return wrap
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None, device=None) -> None:

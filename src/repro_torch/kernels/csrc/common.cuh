@@ -48,12 +48,14 @@ __device__ __forceinline__ int block_exclusive_sum(int v, int* total) {
   return result;
 }
 
+// The most blocks grid_for gives: 16 on each of an H100's 132 SMs.
+constexpr int64_t kGridCap = 132 * 16;
+
 // Blocks for a grid-stride loop over n elements: enough to fill the card,
 // no more than the elements need.
 inline int grid_for(int64_t n, int threads) {
   const int64_t want = (n + threads - 1) / threads;
-  const int64_t cap = 132 * 16;  // 16 blocks on each of an H100's 132 SMs
-  return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+  return static_cast<int>(want < 1 ? 1 : (want < kGridCap ? want : kGridCap));
 }
 
 // Blocks of ``kernel`` (``threads`` a block, no dynamic shared memory) that
@@ -72,7 +74,42 @@ inline int resident_wave(const void* kernel, int threads, int* cache) {
   return b;
 }
 
+// One launch as a library's <library>_launch_config reports it, field by
+// field (kernels/_build.py LAUNCH_FIELDS): the grid's x, y and z; threads a
+// block; dynamic shared bytes; the dynamic shared bytes the launcher opts
+// in to with cudaFuncSetAttribute before the launch (0: none); the cap the
+// launcher puts on grid x (0: none).
+struct LaunchRecord {
+  int64_t grid_x, grid_y, grid_z, threads, smem, opt_in, cap;
+};
+constexpr int kLaunchFields = 7;
+
+// Writes record i into out, which has room for max records; returns i + 1,
+// or -1 when there is no room.
+inline int put_launch(int64_t* out, int max, int i, const LaunchRecord& r) {
+  if (i < 0 || i >= max) return -1;
+  int64_t* o = out + static_cast<int64_t>(i) * kLaunchFields;
+  o[0] = r.grid_x;
+  o[1] = r.grid_y;
+  o[2] = r.grid_z;
+  o[3] = r.threads;
+  o[4] = r.smem;
+  o[5] = r.opt_in;
+  o[6] = r.cap;
+  return i + 1;
+}
+
 }  // namespace repro
+
+// The signature of every library's <library>_launch_config: the launches
+// (kLaunchFields int64 each, at most max of them) that C entry point
+// number `entry` of the library makes for the shape args[0 .. n_args),
+// computed from the constants its launcher uses, on the current device.
+// Returns how many it wrote, or -1 for an entry, shape or room it does not
+// take. Output pointers are taken as 16-byte aligned, as PyTorch allocates.
+#define REPRO_LAUNCH_CONFIG(library)                                             \
+  extern "C" int library##_launch_config(int entry, const int64_t* args, int n_args, \
+                                         int64_t* out, int max)
 
 // Exported by every kernel library, so a wrapper can name a failed launch.
 #define REPRO_EXPORT_ERROR_STRING                                    \

@@ -320,6 +320,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The one launch over an n-byte chunk, as <library>_launch_config reports
+// it: a block per tile and kTrailing blocks after them, static shared
+// memory only.
+inline repro::LaunchRecord decode_tiles_launch(int64_t n) {
+  return {tiles_for(n) + kTrailing, 1, 1, kThreads, 0, 0, 0};
+}
+
 // One launch of decode_tiles_kernel over the n-byte chunk buf on stream.
 // scratch: int32 words (lookback.cuh's int64 words, two int32 each), at
 // least decode_scan_scratch_ints(n) (decode_utf8.cu), zeroed when made and

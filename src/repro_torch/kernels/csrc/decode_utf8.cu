@@ -63,3 +63,9 @@ extern "C" int decode_utf8(const void* buf, int64_t n, int max_rows, int n_field
               n_dense, n_sparse};
   return launch_decode_tiles(buf, n, scratch, epoch, o, stream);
 }
+
+// Entry 0 decode_utf8, args (n): one launch of decode_tiles_kernel.
+REPRO_LAUNCH_CONFIG(decode_utf8) {
+  if (entry != 0 || n_args != 1 || args[0] < 0 || args[0] >= (int64_t{1} << 31)) return -1;
+  return repro::put_launch(out, max, 0, decode_tiles_launch(args[0]));
+}

@@ -51,21 +51,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Blocks of dense_xform_kernel<T> that the current device holds at once.
+template <typename T>
+int wave() {
+  static int blocks[64] = {};
+  return repro::resident_wave(reinterpret_cast<const void*>(dense_xform_kernel<T>), kThreads,
+                              blocks);
+}
+
+// Blocks for `quads` quads: a block per 128 quads, at most one resident wave.
+template <typename T>
+int blocks_for(int64_t quads) {
+  const int64_t want = std::max<int64_t>(1, (quads + kThreads - 1) / kThreads);
+  return static_cast<int>(std::min<int64_t>(want, wave<T>()));
+}
+
 template <typename T>
 int launch(const void* x, void* out, int64_t n, cudaStream_t stream) {
-  static int wave[64] = {};
   const auto* in = static_cast<const T*>(x);
   auto* o = static_cast<float*>(out);
   const int head = static_cast<int>(
       std::min<int64_t>(n, ((16 - (reinterpret_cast<uintptr_t>(o) & 15)) & 15) / 4));
   const int64_t quads = (n - head) / 4;
   const bool vec_in = (reinterpret_cast<uintptr_t>(in + head) & 15) == 0;
-  const int64_t want = std::max<int64_t>(1, (quads + kThreads - 1) / kThreads);
-  const int blocks = static_cast<int>(std::min<int64_t>(
-      want,
-      repro::resident_wave(reinterpret_cast<const void*>(dense_xform_kernel<T>), kThreads, wave)));
+  const int blocks = blocks_for<T>(quads);
   dense_xform_kernel<T><<<blocks, kThreads, 0, stream>>>(in, o, n, head, quads, vec_in);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+repro::LaunchRecord launch_record(int64_t n) {
+  return {blocks_for<T>(n / 4), 1, 1, kThreads, 0, 0, wave<T>()};
 }
 
 }  // namespace
@@ -78,4 +94,12 @@ REPRO_EXPORT_ERROR_STRING
 extern "C" int dense_transform(const void* x, void* out, int64_t n, int is_f32, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   return is_f32 ? launch<float>(x, out, n, s) : launch<int>(x, out, n, s);
+}
+
+// Entry 0 dense_transform, args (n, is_f32): one launch of
+// dense_xform_kernel<int> or <float> with an aligned output (no head).
+REPRO_LAUNCH_CONFIG(dense_xform) {
+  if (entry != 0 || n_args != 2 || args[0] < 1) return -1;
+  return repro::put_launch(out, max, 0,
+                           args[1] ? launch_record<float>(args[0]) : launch_record<int>(args[0]));
 }

@@ -446,6 +446,50 @@ extern "C" int embedding_gather(const void* tables, const void* ids, void* out, 
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// The two launches of embedding_gather_backward for batch >= 1 rows and a
+// gradient of n >= 1 floats: sort_zero_kernel, then sum_kernel. Returns a
+// CUDA error of the device queries, or 0.
+struct BackwardLaunches {
+  repro::LaunchRecord sort, sum;
+};
+
+int backward_launches(int batch, int n_cols, int64_t n, int dim, int padded, int zero_in_kernel,
+                      int bulk, BackwardLaunches* l) {
+  const int n_seg = (batch + kSegment - 1) / kSegment;
+  size_t smem =
+      (kHist + (padded <= kSharedSortRows ? 4 * static_cast<size_t>(padded) : 0)) * sizeof(int);
+  int zero_blocks = 0;
+  if (zero_in_kernel) {
+    // Each block asks for more than half of an SM's shared memory, so no
+    // two share an SM: the zeroing blocks take the SMs the sort leaves,
+    // and none is slowed by a sort block beside it.
+    int device, sms, sm_smem;
+    cudaError_t e = cudaGetDevice(&device);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const size_t alone = static_cast<size_t>(sm_smem) / 2 + 1024;
+    smem = smem > alone ? smem : alone;
+    const int64_t want = (n / 4 + kSortThreads - 1) / kSortThreads;
+    const int room = sms > n_cols + 1 ? sms - n_cols : 1;
+    zero_blocks = static_cast<int>(want < room ? (want < 1 ? 1 : want) : room);
+  }
+  l->sort = {n_cols + zero_blocks, 1, 1, kSortThreads, static_cast<int64_t>(smem),
+             static_cast<int64_t>(smem), 0};
+  const int64_t threads = static_cast<int64_t>(n_cols) * n_seg * 32;
+  const int64_t blocks = (threads + kSumThreads - 1) / kSumThreads;
+  const int64_t staged = bulk ? kSumThreads / 32 * kSegment * dim * static_cast<int>(sizeof(float))
+                              : 0;
+  l->sum = {blocks, 1, 1, kSumThreads, staged, staged, 0};
+  return 0;
+}
+
+}  // namespace
+
 // grad: f32 [n_cols, vocab, dim] out, every element written; 16-byte
 // aligned. grad_out: f32 [batch, n_cols, dim]. ids: int32 [batch, n_cols].
 // Scratch (int32 unless named): sorted [n_cols, 2, padded]; sort_scratch
@@ -470,43 +514,24 @@ extern "C" int embedding_gather_backward(void* grad, const void* grad_out, const
   }
   const int n_seg = (batch + kSegment - 1) / kSegment;
   const int key_bits = 32 - __builtin_clz(static_cast<unsigned>(vocab));  // keys 0..vocab
-  size_t smem =
-      (kHist + (padded <= kSharedSortRows ? 4 * static_cast<size_t>(padded) : 0)) * sizeof(int);
-  int zero_blocks = 0;
-  if (zero_in_kernel) {
-    // Each block asks for more than half of an SM's shared memory, so no
-    // two share an SM: the zeroing blocks take the SMs the sort leaves,
-    // and none is slowed by a sort block beside it.
-    int device, sms, sm_smem;
-    cudaError_t e = cudaGetDevice(&device);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e == cudaSuccess) {
-      e = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
-    }
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const size_t alone = static_cast<size_t>(sm_smem) / 2 + 1024;
-    smem = smem > alone ? smem : alone;
-    const int64_t want = (n / 4 + kSortThreads - 1) / kSortThreads;
-    const int room = sms > n_cols + 1 ? sms - n_cols : 1;
-    zero_blocks = static_cast<int>(want < room ? (want < 1 ? 1 : want) : room);
-  }
+  BackwardLaunches l;
+  const int queried = backward_launches(batch, n_cols, n, dim, padded, zero_in_kernel, bulk, &l);
+  if (queried != 0) return queried;
   cudaError_t err = cudaFuncSetAttribute(
-      sort_zero_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      sort_zero_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(l.sort.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  sort_zero_kernel<<<n_cols + zero_blocks, kSortThreads, smem, s>>>(
+  sort_zero_kernel<<<static_cast<unsigned>(l.sort.grid_x), kSortThreads, l.sort.smem, s>>>(
       static_cast<const int*>(ids), static_cast<int*>(sorted), static_cast<int*>(sort_scratch),
       static_cast<int2*>(seg), static_cast<int*>(tickets), static_cast<float*>(grad),
       zero_in_kernel ? n : 0, batch, n_cols, vocab, padded, key_bits, n_seg);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t threads = static_cast<int64_t>(n_cols) * n_seg * 32;
-  const int blocks = static_cast<int>((threads + kSumThreads - 1) / kSumThreads);
+  const unsigned blocks = static_cast<unsigned>(l.sum.grid_x);
   if (bulk) {
-    const int staged = kSumThreads / 32 * kSegment * dim * static_cast<int>(sizeof(float));
     err = cudaFuncSetAttribute(sum_kernel<float2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               staged);
+                               static_cast<int>(l.sum.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    sum_kernel<float2><<<blocks, kSumThreads, staged, s>>>(
+    sum_kernel<float2><<<blocks, kSumThreads, l.sum.smem, s>>>(
         static_cast<const float*>(grad_out), static_cast<const int*>(sorted),
         static_cast<const int2*>(seg), static_cast<int*>(tickets), static_cast<float*>(partials),
         static_cast<float*>(grad), batch, n_cols, vocab, dim, padded, n_seg);
@@ -517,4 +542,31 @@ extern "C" int embedding_gather_backward(void* grad, const void* grad_out, const
         static_cast<float*>(grad), batch, n_cols, vocab, dim, padded, n_seg);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Entry 0 embedding_gather, args (batch, n_cols, dim, vec4): one launch of
+// gather_kernel<float4> or <float>. Entry 1 embedding_gather_backward, args
+// (batch, n_cols, vocab, dim, zero_in_kernel, bulk): sort_zero_kernel, then
+// sum_kernel, on the padded rows the wrapper gives (kernels/embedding_bag/
+// ops.py backward_scratch); none when batch or the gradient is empty (a
+// memset alone).
+REPRO_LAUNCH_CONFIG(embedding_bag) {
+  if (entry == 0 && n_args == 4) {
+    const int64_t n_rows = args[0] * args[1];
+    const int64_t work = args[3] ? n_rows * (args[2] / 4) : n_rows * args[2];
+    return repro::put_launch(out, max, 0, {repro::grid_for(work, kThreads), 1, 1, kThreads, 0,
+                                           0, repro::kGridCap});
+  }
+  if (entry != 1 || n_args != 6) return -1;
+  const int batch = static_cast<int>(args[0]), n_cols = static_cast<int>(args[1]);
+  const int64_t n = args[1] * args[2] * args[3];
+  if (batch == 0 || n == 0) return 0;
+  const int padded = static_cast<int>((args[0] + kSortThreads - 1) / kSortThreads * kSortThreads);
+  BackwardLaunches l;
+  if (backward_launches(batch, n_cols, n, static_cast<int>(args[3]), padded,
+                        static_cast<int>(args[4]), static_cast<int>(args[5]), &l) != 0) {
+    return -1;
+  }
+  if (repro::put_launch(out, max, 0, l.sort) < 0) return -1;
+  return repro::put_launch(out, max, 1, l.sum);
 }

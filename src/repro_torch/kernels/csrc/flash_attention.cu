@@ -849,8 +849,10 @@ __global__ void __launch_bounds__(kThreadsF32) flash_f32_kernel(Args p) {
   }
 }
 
+int f32_smem_bytes(int d) { return f32_smem_floats(d) * static_cast<int>(sizeof(float)); }
+
 int launch_f32(const Args& a, int batch, cudaStream_t stream) {
-  const int smem = f32_smem_floats(a.head_dim) * static_cast<int>(sizeof(float));
+  const int smem = f32_smem_bytes(a.head_dim);
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -859,7 +861,40 @@ int launch_f32(const Args& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch of route (0 f32, 1 mma_sync, 2 wgmma) at head_dim d over
+// batch * hq heads of len_q queries; false for a route that does not take d.
+bool launch_record(int64_t batch, int64_t hq, int64_t len_q, int d, int route,
+                   repro::LaunchRecord* r) {
+  int rows, threads, smem;
+  if (route == 0 && d % 4 == 0 && d >= 4 && d <= 256) {
+    rows = kRowsF32, threads = kThreadsF32, smem = f32_smem_bytes(d);
+  } else if (route == 1 && (d == 16 || d == 32)) {
+    rows = kRowsBf16, threads = kThreadsBf16;
+    smem = d == 16 ? Bf16Tile<16>::kSmemBytes : Bf16Tile<32>::kSmemBytes;
+  } else if (route == 2 && (d == 64 || d == 128 || d == 256)) {
+    rows = kWgRows, threads = kWgThreads;
+    smem = d == 64 ? WgTile<64>::kSmemBytes
+                   : (d == 128 ? WgTile<128>::kSmemBytes : WgTile<256>::kSmemBytes);
+  } else {
+    return false;
+  }
+  *r = {batch * hq, (len_q + rows - 1) / rows, 1, threads, smem, smem, 0};
+  return true;
+}
+
 }  // namespace
+
+// Entry 0 flash_attention, args (batch, hq, len_q, head_dim, route): one
+// launch of flash_f32_kernel, flash_bf16_kernel<D> or flash_wgmma_kernel<D>.
+REPRO_LAUNCH_CONFIG(flash_attention) {
+  repro::LaunchRecord r;
+  if (entry != 0 || n_args != 5 ||
+      !launch_record(args[0], args[1], args[2], static_cast<int>(args[3]),
+                     static_cast<int>(args[4]), &r)) {
+    return -1;
+  }
+  return repro::put_launch(out, max, 0, r);
+}
 
 // The message of a code this library returned: a CUDA error, or a tensor
 // map that cuTensorMapEncodeTiled refused.

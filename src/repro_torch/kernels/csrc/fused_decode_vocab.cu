@@ -182,3 +182,9 @@ extern "C" int fused_decode_genvocab(const void* buf, int64_t n, int max_rows, i
                    counts, reinterpret_cast<uint2*>(counts + 2)};
   return launch_decode_tiles(buf, n, scratch, epoch, o, stream);
 }
+
+// Entry 0 fused_decode_genvocab, args (n): one launch of decode_tiles_kernel.
+REPRO_LAUNCH_CONFIG(fused_decode_vocab) {
+  if (entry != 0 || n_args != 1 || args[0] < 0 || args[0] >= (int64_t{1} << 31)) return -1;
+  return repro::put_launch(out, max, 0, decode_tiles_launch(args[0]));
+}

@@ -64,6 +64,13 @@ extern "C" int fused_genvocab_counts(void* first_pos, void* counts, const void* 
       vocab_range, static_cast<cudaStream_t>(stream));
 }
 
+// Entries 0 fused_genvocab and 1 fused_genvocab_counts, args (rows,
+// n_cols): one launch of genvocab_warp_kernel.
+REPRO_LAUNCH_CONFIG(fused_vocab) {
+  if ((entry != 0 && entry != 1) || n_args != 2 || args[0] < 1) return -1;
+  return repro::put_launch(out, max, 0, genvocab_warp_launch(args[0], static_cast<int>(args[1])));
+}
+
 // An empty kernel on the stream: the launch floor the smoke measures
 // beside the microsecond kernels.
 extern "C" int empty_kernel(void* stream) {

@@ -104,6 +104,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The one launch over rows x n_sparse and rows x n_dense elements: a
+// thread per quad of either, grid_for's blocks.
+repro::LaunchRecord launch_record(int64_t rows, int n_sparse, int n_dense) {
+  const int64_t quads = (rows * n_sparse + 3) / 4 + (rows * n_dense + 3) / 4;
+  return {repro::grid_for(quads, kThreads), 1, 1, kThreads, 0, 0, repro::kGridCap};
+}
+
 template <bool kGather>
 int launch(const void* table, const void* sparse, const void* dense, void* ids, void* dense_out,
            int rows, int n_sparse, int n_dense, uint64_t cols_magic, int vocab_range,
@@ -143,4 +150,12 @@ extern "C" int fused_mod_dense(const void* sparse, const void* dense, void* modd
                                void* stream) {
   return launch<false>(nullptr, sparse, dense, modded, dense_out, rows, n_sparse, n_dense,
                        cols_magic, vocab_range, vocab_magic, stream);
+}
+
+// Entries 0 fused_transform and 1 fused_mod_dense, args (rows, n_sparse,
+// n_dense): one launch of xform_kernel<true> or <false>.
+REPRO_LAUNCH_CONFIG(fused_xform) {
+  if ((entry != 0 && entry != 1) || n_args != 3 || args[0] < 1) return -1;
+  return repro::put_launch(out, max, 0, launch_record(args[0], static_cast<int>(args[1]),
+                                                      static_cast<int>(args[2])));
 }

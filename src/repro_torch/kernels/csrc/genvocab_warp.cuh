@@ -39,6 +39,8 @@
 // may share it, and launches on two streams never share one.
 #pragma once
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -81,7 +83,7 @@ struct RangeSlot {
 };
 
 // vals: int32 [rows, n_cols]; counts: the count plane (kCounts) or unused.
-// Launch with (rows + 31) / 32 blocks of 32 * min(max(n_cols, 1), 32)
+// Launch with (rows + 31) / 32 blocks of genvocab_warp_threads(n_cols)
 // threads; warp w takes the columns w, w + warps, ... Lane 0 of warp 0 also
 // adds the block's valid rows to the tally.
 template <class Slot, bool kCounts>
@@ -118,14 +120,23 @@ __global__ void __launch_bounds__(1024)
   if (warp == 0 && lane == 0) finish_rows(tally, ticket, __popc(valid_mask), seen, rows_seen_out);
 }
 
+// A warp a column, at most 32 warps a block.
+inline int genvocab_warp_threads(int n_cols) { return 32 * std::min(std::max(n_cols, 1), 32); }
+
+// The launch of genvocab_warp_kernel over rows >= 1 rows, as
+// <library>_launch_config reports it.
+inline repro::LaunchRecord genvocab_warp_launch(int64_t rows, int n_cols) {
+  return {(rows + 31) / 32, 1, 1, genvocab_warp_threads(n_cols), 0, 0, 0};
+}
+
 // The launch of genvocab_warp_kernel over rows >= 1 rows on stream.
 template <class Slot, bool kCounts>
 int launch_genvocab_warp(int* first_pos, int* counts, const int* vals, const uint8_t* valid,
                          const int* rows_seen_in, int* rows_seen_out,
                          unsigned long long* tally, int rows, int n_cols, int vocab_range,
                          cudaStream_t stream) {
-  const int threads = 32 * (n_cols < 1 ? 1 : n_cols < 32 ? n_cols : 32);
-  genvocab_warp_kernel<Slot, kCounts><<<(rows + 31) / 32, threads, 0, stream>>>(
+  genvocab_warp_kernel<Slot, kCounts><<<(rows + 31) / 32, genvocab_warp_threads(n_cols), 0,
+                                        stream>>>(
       first_pos, counts, vals, valid, rows_seen_in, rows_seen_out, tally, rows, n_cols,
       vocab_range);
   return static_cast<int>(cudaGetLastError());

@@ -115,9 +115,30 @@ int apply_wave() {
                               blocks);
 }
 
+// Blocks of apply_vocab_kernel for `quads` quads: a block per 128 quads, at
+// most one resident wave.
+int apply_blocks(int quads) {
+  const int want = std::max(1, (quads + kApplyThreads - 1) / kApplyThreads);
+  return std::min(want, apply_wave());
+}
+
 }  // namespace
 
 REPRO_EXPORT_ERROR_STRING
+
+// Entry 0 genvocab, args (rows, n_cols): one launch of genvocab_warp_kernel.
+// Entry 1 apply_vocab, args (rows, n_cols): one launch of apply_vocab_kernel
+// with an aligned ids (no head).
+REPRO_LAUNCH_CONFIG(vocab) {
+  if (n_args != 2 || args[0] < 1) return -1;
+  if (entry == 0) {
+    return repro::put_launch(out, max, 0, genvocab_warp_launch(args[0], static_cast<int>(args[1])));
+  }
+  if (entry != 1 || args[0] * args[1] < 1 || args[0] * args[1] >= (int64_t{1} << 31)) return -1;
+  const int quads = static_cast<int>(args[0] * args[1] / 4);
+  return repro::put_launch(out, max, 0, {apply_blocks(quads), 1, 1, kApplyThreads, 0, 0,
+                                         apply_wave()});
+}
 
 // first_pos: int32 [n_cols, vocab_range], updated in place. counts: int32
 // [n_cols, vocab_range] updated in place, or null for no count plane.
@@ -155,8 +176,7 @@ extern "C" int apply_vocab(const void* table, const void* modded, void* ids, int
       std::min<int64_t>(total, ((16 - (reinterpret_cast<uintptr_t>(out) & 15)) & 15) / 4));
   const int quads = (total - head) / 4;
   const bool vec_in = (reinterpret_cast<uintptr_t>(m + head) & 15) == 0;
-  const int want = std::max(1, (quads + kApplyThreads - 1) / kApplyThreads);
-  const int blocks = std::min(want, apply_wave());
+  const int blocks = apply_blocks(quads);
   apply_vocab_kernel<<<blocks, kApplyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), m, out, total, head, quads, vec_in, n_cols,
       static_cast<uint32_t>(vocab_range));

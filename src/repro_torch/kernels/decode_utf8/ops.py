@@ -34,6 +34,26 @@ KERNEL = _build.Kernel(
     [_build.PTR, _build.INT64, _build.INT, _build.INT, _build.INT, _build.INT,
      _build.INT, _build.PTR, _build.INT, _build.PTR, _build.PTR, _build.PTR, _build.PTR],
 )
+# csrc/decode_tiles.cuh, shared by every kernel that reads raw bytes: a block
+# of TILE_THREADS threads per TILE_BYTES tile, then TRAILING blocks.
+TILE_THREADS, TILE_BYTES, TRAILING = 1024, 8192, 32
+LAUNCH_ENTRIES = {"decode_utf8": 0}  # C symbol → entry of decode_utf8_launch_config
+
+
+def tiles_launch(n_bytes: int) -> list[dict]:
+    """The one launch of ``decode_tiles_kernel`` (csrc/decode_tiles.cuh) over
+    an ``n_bytes`` chunk: a block per 8 KiB tile and 32 trailing blocks of
+    1024 threads, static shared memory only."""
+    return [_build.launch_record("decode_tiles_kernel", (-(-n_bytes // TILE_BYTES) + TRAILING,),
+                                 TILE_THREADS)]
+
+
+def launch_accounting(symbol: str, n_bytes: int) -> list[dict]:
+    """The launches of ``symbol`` on an ``n_bytes`` chunk, as
+    ``decode_utf8_launch_config`` reports them."""
+    if symbol not in LAUNCH_ENTRIES:
+        raise ValueError(f"decode_utf8 has no entry point {symbol!r}")
+    return tiles_launch(n_bytes)
 
 
 def _check_layout(hex_field_table, n_fields: int, n_dense: int) -> None:
@@ -54,6 +74,7 @@ def _check_layout(hex_field_table, n_fields: int, n_dense: int) -> None:
         )
 
 
+@_build.entry(KERNEL)
 def decode(
     byte_buf: torch.Tensor,
     hex_field_table,

@@ -14,8 +14,24 @@ from repro_torch.kernels.dense_xform import ref
 KERNEL = _build.Kernel(
     "dense_xform", "dense_transform", [_build.PTR, _build.PTR, _build.INT64, _build.INT]
 )
+LAUNCH_ENTRIES = {"dense_transform": 0}  # C symbol → entry of dense_xform_launch_config
+THREADS = 128  # csrc/dense_xform.cu kThreads
 
 
+def launch_accounting(symbol: str, n: int, is_f32: int, *, wave: int | None = None
+                      ) -> list[dict]:
+    """The launches of ``symbol`` over ``n`` elements, as
+    ``dense_xform_launch_config`` reports them: a block of 128 threads per
+    128 quads of an aligned output, at most ``wave`` blocks (the card's
+    resident wave of the kernel for that input type; None: uncapped)."""
+    if symbol not in LAUNCH_ENTRIES:
+        raise ValueError(f"dense_xform has no entry point {symbol!r}")
+    want = max(1, -(-(n // 4) // THREADS))
+    return [_build.launch_record("dense_xform_kernel", (want if wave is None else min(want, wave),),
+                                 THREADS, cap=wave or 0)]
+
+
+@_build.entry(KERNEL)
 def dense_transform(dense: torch.Tensor) -> torch.Tensor:
     """Neg2Zero + Logarithm in one launch: dense int32 or f32, any shape
     → f32 ``log1p(max(x, 0))`` of the same shape."""

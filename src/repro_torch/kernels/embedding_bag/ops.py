@@ -38,6 +38,60 @@ _BULK_MAX_DIM = 256  # widest rows the summing kernel stages by bulk copies
 ZERO_IN_KERNEL_MAX_BYTES = 1 << 30
 
 
+# csrc/embedding_bag.cu's launch constants, which launch_accounting declares
+# and embedding_bag_launch_config reports:
+_GATHER_THREADS = 256
+_SORT_THREADS = 1024  # the sort block's threads (= _SORT_QUANTUM)
+_SUM_THREADS = 128
+_HIST_INTS = 128 * (_SORT_THREADS // 32 + 1)  # the sort's radix histogram
+H100_SMS = 132
+H100_SM_SHARED_BYTES = 233472  # shared memory of one H100 SM
+LAUNCH_ENTRIES = {"embedding_gather": 0, "embedding_gather_backward": 1}
+
+
+def launch_accounting(symbol: str, *shape: int, sms: int = H100_SMS,
+                      sm_shared_bytes: int = H100_SM_SHARED_BYTES) -> list[dict]:
+    """The launches of ``symbol`` at ``shape``, as
+    ``embedding_bag_launch_config`` reports them.
+
+    ``embedding_gather`` at ``(batch, n_cols, dim, vec4)``: one launch of
+    ``gather_kernel``, ``grid_for``'s blocks of 256 threads.
+    ``embedding_gather_backward`` at ``(batch, n_cols, vocab, dim,
+    zero_in_kernel, bulk)``: ``sort_zero_kernel`` (a block a column and, when
+    it zeroes the gradient, the card's free SMs; more than half of an SM's
+    shared memory a block, so no two share one), then ``sum_kernel`` (a warp
+    per 32 sorted rows; 512 bytes a column of dim staged by bulk copies);
+    none for an empty batch or gradient. ``sms`` and ``sm_shared_bytes``
+    are the card's (an H100's by default)."""
+    if symbol == "embedding_gather":
+        batch, n_cols, dim, vec4 = shape
+        work = batch * n_cols * (dim // 4 if vec4 else dim)
+        return [_build.launch_record("gather_kernel", (_build.grid_for(work, _GATHER_THREADS),),
+                                     _GATHER_THREADS, cap=_build.GRID_CAP)]
+    if symbol != "embedding_gather_backward":
+        raise ValueError(f"embedding_bag has no entry point {symbol!r}")
+    batch, n_cols, vocab_range, dim, zero, bulk = shape
+    n = n_cols * vocab_range * dim
+    if batch == 0 or n == 0:
+        return []
+    padded = -(-batch // _SORT_QUANTUM) * _SORT_QUANTUM
+    smem = 4 * (_HIST_INTS + (4 * padded if padded <= _SHARED_SORT_ROWS else 0))
+    zero_blocks = 0
+    if zero:
+        smem = max(smem, sm_shared_bytes // 2 + 1024)
+        want = -(-(n // 4) // _SORT_THREADS)
+        room = sms - n_cols if sms > n_cols + 1 else 1
+        zero_blocks = max(want, 1) if want < room else room
+    n_seg = -(-batch // _SEGMENT)
+    staged = _SUM_THREADS // 32 * _SEGMENT * dim * 4 if bulk else 0
+    return [
+        _build.launch_record("sort_zero_kernel", (n_cols + zero_blocks,), _SORT_THREADS, smem,
+                             smem),
+        _build.launch_record("sum_kernel", (-(-n_cols * n_seg * 32 // _SUM_THREADS),),
+                             _SUM_THREADS, staged, staged),
+    ]
+
+
 def zero_in_kernel(n_bytes: int) -> bool:
     """Whether the sort's launch zeroes a dense gradient of ``n_bytes``."""
     return n_bytes <= ZERO_IN_KERNEL_MAX_BYTES
@@ -126,12 +180,14 @@ class EmbeddingGather(torch.autograd.Function):
         return embedding_gather_backward(grad_out.contiguous(), ids, ctx.vocab_range), None
 
 
+@_build.entry(KERNEL)
 def embedding_gather(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """tables f32 [n_cols, vocab, dim]; ids int32 [batch, n_cols]
     → f32 [batch, n_cols, dim], the reference's public layout."""
     return EmbeddingGather.apply(tables, ids)
 
 
+@_build.entry(KERNEL_BACKWARD)
 def embedding_gather_backward(
     grad_out: torch.Tensor, ids: torch.Tensor, vocab_range: int
 ) -> torch.Tensor:

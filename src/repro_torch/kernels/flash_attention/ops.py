@@ -28,6 +28,45 @@ ROUTES = {"f32": (0, 32), "mma_sync": (1, 64), "wgmma": (2, 128)}
 
 _P, _I, _I64 = _build.PTR, _build.INT, _build.INT64
 KERNEL = _build.Kernel("flash_attention", "flash_attention", [_P] * 4 + [_I64] * 9 + [_I] * 8)
+LAUNCH_ENTRIES = {"flash_attention": 0}  # C symbol → entry of flash_attention_launch_config
+# csrc/flash_attention.cu's launch constants by route: (threads a block,
+# dynamic shared bytes by head_dim). The wgmma tiles: Q, the K and V rings
+# (80 keys at D 256, else 128; 4 stages a ring at D 64, else 2), their
+# mbarriers and 1024 bytes of alignment slack; mma_sync: Q and two stages
+# of K and V of 64 keys, rows padded by 8; f32: see f32_smem_bytes.
+_WG_STAGES = {64: (128, 4), 128: (128, 2), 256: (80, 2)}  # keys a tile, stages a ring
+_THREADS = {"f32": 256, "mma_sync": 128, "wgmma": 384}
+
+
+def route_smem_bytes(route_name: str, head_dim: int) -> int:
+    """Dynamic shared bytes of one block of ``route_name`` at ``head_dim``."""
+    if route_name == "wgmma":
+        keys, stages = _WG_STAGES[head_dim]
+        barriers = 1 + 2 * (2 * stages)
+        return 1024 + 128 * head_dim * 2 + 2 * stages * keys * head_dim * 2 + 8 * barriers
+    if route_name == "mma_sync":
+        return (64 + 4 * 64) * (head_dim + 8) * 2
+    rows = keys = 32
+    floats = (rows * (head_dim + 1) + keys * (head_dim + 1) + keys * head_dim + rows * head_dim
+              + rows * (keys + 1) + 3 * rows)
+    return 4 * floats
+
+
+def launch_accounting(symbol: str, batch: int, hq: int, len_q: int, head_dim: int,
+                      route_code: int) -> list[dict]:
+    """The launches of ``symbol`` over ``batch`` x ``hq`` heads of ``len_q``
+    queries on route ``route_code`` (``ROUTES``), as
+    ``flash_attention_launch_config`` reports them: a block per head and per
+    tile of query rows, opting in to all of its dynamic shared memory."""
+    if symbol not in LAUNCH_ENTRIES:
+        raise ValueError(f"flash_attention has no entry point {symbol!r}")
+    name = next(n for n, (code, _) in ROUTES.items() if code == route_code)
+    rows = ROUTES[name][1]
+    kernel = {"f32": "flash_f32_kernel", "mma_sync": "flash_bf16_kernel",
+              "wgmma": "flash_wgmma_kernel"}[name]
+    smem = route_smem_bytes(name, head_dim)
+    return [_build.launch_record(kernel, (batch * hq, -(-len_q // rows)), _THREADS[name], smem,
+                                 smem)]
 
 
 def _check_shapes(q, k, v, *, causal: bool) -> None:
@@ -115,6 +154,7 @@ class _FlashAttention(torch.autograd.Function):
             "is; train through attention_chunked (LM attn_impl='chunked')")
 
 
+@_build.entry(KERNEL)
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -31,8 +31,18 @@ KERNEL = _build.Kernel(
     "fused_decode_genvocab",
     [_P, _build.INT64, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
 )
+LAUNCH_ENTRIES = {"fused_decode_genvocab": 0}  # C symbol → entry of its launch_config
 
 
+def launch_accounting(symbol: str, n_bytes: int) -> list[dict]:
+    """The launches of ``symbol`` on an ``n_bytes`` chunk, as
+    ``fused_decode_vocab_launch_config`` reports them: decode's tile scan."""
+    if symbol not in LAUNCH_ENTRIES:
+        raise ValueError(f"fused_decode_vocab has no entry point {symbol!r}")
+    return decode_ops.tiles_launch(n_bytes)
+
+
+@_build.entry(KERNEL)
 def fused_decode_update(
     state: vocab_lib.VocabState,
     byte_buf: torch.Tensor,

@@ -29,8 +29,27 @@ KERNEL = _build.Kernel(
 KERNEL_COUNTS = _build.Kernel(
     "fused_vocab", "fused_genvocab_counts", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I]
 )
+# C symbol → entry of fused_vocab_launch_config
+LAUNCH_ENTRIES = {"fused_genvocab": 0, "fused_genvocab_counts": 1}
 
 
+def genvocab_warp_launch(rows: int, n_cols: int) -> list[dict]:
+    """The one launch of ``genvocab_warp_kernel`` (csrc/genvocab_warp.cuh)
+    over ``rows >= 1`` rows: a block per 32 rows, a warp a column up to 32
+    warps."""
+    return [_build.launch_record("genvocab_warp_kernel", (-(-rows // 32),),
+                                 32 * min(max(n_cols, 1), 32))]
+
+
+def launch_accounting(symbol: str, rows: int, n_cols: int) -> list[dict]:
+    """The launches of ``symbol`` over ``rows`` x ``n_cols`` hashes, as
+    ``fused_vocab_launch_config`` reports them."""
+    if symbol not in LAUNCH_ENTRIES:
+        raise ValueError(f"fused_vocab has no entry point {symbol!r}")
+    return genvocab_warp_launch(rows, n_cols)
+
+
+@_build.entry(KERNEL, KERNEL_COUNTS)
 def fused_update(
     state: vocab_lib.VocabState, sparse: torch.Tensor, valid: torch.Tensor
 ) -> vocab_lib.VocabState:

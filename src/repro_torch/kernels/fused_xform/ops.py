@@ -24,6 +24,20 @@ KERNEL = _build.Kernel(
 KERNEL_MOD_DENSE = _build.Kernel(
     "fused_xform", "fused_mod_dense", [_P, _P, _P, _P, _I, _I, _I, _U64, _I, _U64]
 )
+# C symbol → entry of fused_xform_launch_config
+LAUNCH_ENTRIES = {"fused_transform": 0, "fused_mod_dense": 1}
+THREADS = 128  # csrc/fused_xform.cu kThreads
+
+
+def launch_accounting(symbol: str, rows: int, n_sparse: int, n_dense: int) -> list[dict]:
+    """The launches of ``symbol`` over ``rows`` rows, as
+    ``fused_xform_launch_config`` reports them: a thread per quad of the
+    sparse and of the dense elements, ``grid_for``'s blocks of 128."""
+    if symbol not in LAUNCH_ENTRIES:
+        raise ValueError(f"fused_xform has no entry point {symbol!r}")
+    quads = -(-rows * n_sparse // 4) + -(-rows * n_dense // 4)
+    return [_build.launch_record("xform_kernel", (_build.grid_for(quads, THREADS),), THREADS,
+                                 cap=_build.GRID_CAP)]
 
 
 def fastmod_magic(d: int) -> int:
@@ -52,6 +66,7 @@ def _cols_magic(n_sparse: int) -> int:
     return fastmod_magic(n_sparse) if n_sparse else 0
 
 
+@_build.entry(KERNEL)
 def fused_transform(
     vocab: vocab_lib.Vocabulary, sparse: torch.Tensor, dense: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -81,6 +96,7 @@ def fused_transform(
     return ids, dense_out
 
 
+@_build.entry(KERNEL_MOD_DENSE)
 def fused_mod_dense(
     sparse: torch.Tensor, dense: torch.Tensor, *, vocab_range: int
 ) -> tuple[torch.Tensor, torch.Tensor]:

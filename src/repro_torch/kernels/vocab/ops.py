@@ -24,11 +24,30 @@ import torch
 from repro_torch.core import vocab as vocab_lib
 from repro_torch.kernels import _build
 from repro_torch.kernels._scratch import tally
+from repro_torch.kernels.fused_vocab import ops as fv_ops
 from repro_torch.kernels.vocab import ref
 
 _P, _I = _build.PTR, _build.INT
 KERNEL_GENVOCAB = _build.Kernel("vocab", "genvocab", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I])
 KERNEL_APPLY = _build.Kernel("vocab", "apply_vocab", [_P, _P, _P, _I, _I, _I])
+LAUNCH_ENTRIES = {"genvocab": 0, "apply_vocab": 1}  # C symbol → entry of vocab_launch_config
+APPLY_THREADS = 128  # csrc/vocab.cu kApplyThreads
+
+
+def launch_accounting(symbol: str, rows: int, n_cols: int, *, wave: int | None = None
+                      ) -> list[dict]:
+    """The launches of ``symbol`` over ``rows`` x ``n_cols`` values, as
+    ``vocab_launch_config`` reports them: ``genvocab`` is
+    ``genvocab_warp_kernel``'s launch; ``apply_vocab`` is a block of 128
+    threads per 128 quads of an aligned output, at most ``wave`` blocks (the
+    card's resident wave of the kernel; None: uncapped)."""
+    if symbol == "genvocab":
+        return fv_ops.genvocab_warp_launch(rows, n_cols)
+    if symbol != "apply_vocab":
+        raise ValueError(f"vocab has no entry point {symbol!r}")
+    want = max(1, -(-(rows * n_cols // 4) // APPLY_THREADS))
+    return [_build.launch_record("apply_vocab_kernel", (want if wave is None else min(want, wave),),
+                                 APPLY_THREADS, cap=wave or 0)]
 
 
 def _check_elements(rows: int, n_cols: int) -> None:
@@ -36,6 +55,7 @@ def _check_elements(rows: int, n_cols: int) -> None:
         raise ValueError(f"{rows} x {n_cols} elements; the kernel takes fewer than 2**31")
 
 
+@_build.entry(KERNEL_GENVOCAB)
 def genvocab_update(
     state: vocab_lib.VocabState, modded: torch.Tensor, valid: torch.Tensor
 ) -> vocab_lib.VocabState:
@@ -84,6 +104,7 @@ def genvocab_update(
     return vocab_lib.VocabState(state.first_pos, rows_seen, state.counts)
 
 
+@_build.entry(KERNEL_APPLY)
 def apply_vocab(table: torch.Tensor, modded: torch.Tensor) -> torch.Tensor:
     """ApplyVocab-2: ``ids[r, c] = table[c, modded[r, c]]``.
 

@@ -168,14 +168,13 @@ class Tracer:
         swap applications, error events."""
         if not self.enabled:
             return
-        ts = (time.perf_counter() - self._t_epoch) * 1e6
         self._append(
+            time.perf_counter(),
             {
                 "name": name,
                 "cat": cat,
                 "ph": "i",
                 "s": "t",  # thread-scoped instant
-                "ts": ts,
                 "pid": _PID,
                 "tid": threading.get_ident(),
                 "args": {k: _argstr(v) for k, v in labels.items()},
@@ -184,11 +183,11 @@ class Tracer:
 
     def _record(self, name, cat, t0, t1, labels) -> None:
         self._append(
+            t0,
             {
                 "name": name,
                 "cat": cat,
                 "ph": "X",
-                "ts": (t0 - self._t_epoch) * 1e6,
                 "dur": (t1 - t0) * 1e6,
                 "pid": _PID,
                 "tid": threading.get_ident(),
@@ -196,12 +195,16 @@ class Tracer:
             }
         )
 
-    def _append(self, event: dict) -> None:
+    def _append(self, t: float, event: dict) -> None:
+        """Record ``event`` at ``t`` (a ``time.perf_counter`` reading).
+        Its ``ts`` is taken against the epoch under the lock that
+        :meth:`reset` holds to move the epoch, so an event recorded
+        during a reset never mixes the old epoch with the new ring."""
         tid = event["tid"]
         with self._lock:
+            event["ts"] = (t - self._t_epoch) * 1e6
             if tid not in self._thread_names:
-                t = threading.current_thread()
-                self._thread_names[tid] = t.name
+                self._thread_names[tid] = threading.current_thread().name
             self._events.append(event)
             self._appended += 1
 

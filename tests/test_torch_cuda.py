@@ -1832,3 +1832,73 @@ def test_all_reduce_state_over_gloo_on_the_card(cuda, tmp_path):
         assert np.array_equal(got["first_pos"], want.first_pos.cpu().numpy())
         assert np.array_equal(got["rows_seen"], want.rows_seen.cpu().numpy())
         assert np.array_equal(got["counts"], want.counts.cpu().numpy())
+
+
+# --------------------------------------------------------------------- #
+# the static gate on the card (repro_torch.analysis)
+# --------------------------------------------------------------------- #
+def test_launch_configs_equal_the_declarations(cuda):
+    """Every library's launch_accounting equals its <library>_launch_config
+    at the main path's shapes and their edges."""
+    from repro_torch.analysis import kernelcheck
+    from repro_torch.kernels import _build
+
+    found, records = kernelcheck.check_launch_configs(cuda)
+    assert found == []
+    assert {r["library"] for r in records} == set(_build.SOURCES)
+    assert all(r["equal"] for r in records)
+
+
+@pytest.mark.parametrize("routing", ["fused", "counts", "kernels"])
+def test_audited_routes_launch_exactly_their_entries(cuda, routing):
+    """Each hot-path call's kernel entries (launch_audit) equal its launch
+    counters and the hand-written kernels the profiler sees, exactly, and
+    no call synchronises the host (sync debug mode "error")."""
+    import re
+
+    from repro_torch.analysis import kernelcheck, launch_audit
+    from repro_torch.core import plan_compiler as tcomp
+    from repro_torch.core import schema as tschema
+    from repro_torch.kernels import _build
+
+    hints = {"fused": {"fused": True, "fused_vocab": True, "fused_decode": True},
+             "counts": {"fused": True, "fused_vocab": True, "track_counts": True},
+             "kernels": {"use_kernels": True}}[routing]
+    compiled = tcomp.compile_plan(tplan.criteo_default(tschema.CRITEO), tschema.CRITEO,
+                                  device=cuda, **hints)
+    inputs = launch_audit.route_inputs(compiled, 512)
+    calls = launch_audit.hot_path_calls(compiled, inputs)
+    calls.update({f"route/{k}": v for k, v in launch_audit.route_calls(compiled, inputs).items()})
+    found, traced = launch_audit.audit_calls(calls, cuda, context=routing)
+    assert found == []
+    from repro_torch.analysis.__main__ import repo_root
+
+    _, threads = kernelcheck.audit_sources(kernelcheck.read_sources(repo_root()))
+    hand = re.compile(r"(?:::|\s)(?:" + "|".join(sorted(threads)) + r")[<(]")
+    for name, call in calls.items():
+        entries = traced[name].entries
+        kernels = {k for e in entries for k in _build.ENTRIES[e]}
+        before = {k: k.launches for k in kernels}
+        call()
+        torch.cuda.synchronize()
+        for entry, n in entries.items():
+            assert sum(k.launches - before[k] for k in _build.ENTRIES[entry]) == n, (name, entry)
+        seen = device_kernels(torch, call, calls=4)
+        assert sum(n for k, n in seen.items() if hand.search(" " + k)) == 4 * sum(
+            entries.values()), (name, seen)
+
+
+def test_jx301_decides_under_sync_debug_mode(cuda):
+    from repro_torch.analysis import launch_audit
+
+    x = torch.ones(4, device=cuda)
+    found, _ = launch_audit.audit_calls({"read": lambda: x.sum().item(), "stay": lambda: x + 1},
+                                        cuda, context="seeded")
+    assert [(f.rule, f.obj) for f in found] == [("JX301", "seeded/read")]
+    assert tvocab.check_row_ceiling(torch.zeros((), dtype=torch.int32, device=cuda), 10) is None
+
+
+def test_analysis_gate_strict_on_the_card(cuda, tmp_path):
+    from repro_torch.analysis import __main__ as gate
+
+    assert gate.main(["--strict", "--device", "cuda", "--json", str(tmp_path / "r.json")]) == 0

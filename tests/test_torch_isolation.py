@@ -122,6 +122,10 @@ out = sharded_pipeline.ShardedPiperPipeline(pc, mesh).run_scan(cs, os_)
 assert int(sharded_pipeline.flatten_sharded(out).valid.sum()) == 50
 eng = sharded.ShardedPiper(pc, mesh_lib.make_mesh((2, 2), ("data", "model"), devices="cpu"))
 assert int(eng.run_scan(feed.stacked, feed.offsets).valid.sum()) == 50
+# the static gate, every pass, on the CPU
+from repro_torch.analysis import __main__ as gate
+
+assert gate.main(["--strict", "--device", "cpu"]) == 0
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
 """
@@ -139,9 +143,10 @@ def test_runs_without_jax_or_repro_in_sys_modules():
     cache and the --piper-stream launcher, the row-wise baseline and DLRM
     training fed by the service (the loader's prefetcher, the input
     pipeline, the e2e launcher), LM training (the shapes, build_model,
-    a Trainer step and its checkpoint, the training launcher), and both
-    sharded engines' run_scan on CPU meshes, in a process that never imports
-    JAX or the JAX package."""
+    a Trainer step and its checkpoint, the training launcher), both
+    sharded engines' run_scan on CPU meshes, and the static gate
+    (repro_torch.analysis --strict), in a process that never imports JAX or
+    the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _RUN_PORT_ONLY], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=300, check=True,

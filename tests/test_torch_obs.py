@@ -153,6 +153,67 @@ def test_tracer_ring_disable_and_validator_agree():
         assert ttrace.validate_trace(bad) == jtrace.validate_trace(bad) != []
 
 
+@pytest.mark.parametrize("kind", ["instant", "span"])
+def test_reset_racing_an_event_stamps_it_with_the_new_epoch(monkeypatch, kind):
+    """A reset() that lands between an event's clock reading and its
+    append moves the epoch under the tracer's lock; the event's ts is
+    taken against the epoch it lands beside (the new one), never the
+    old one 1000 s back. The reset is forced into that gap through the
+    labels' stringification, which runs between the two."""
+    tracer = ttrace.Tracer()
+    tracer.reset()
+    tracer._t_epoch -= 1000.0  # an epoch long ago
+    real = ttrace._argstr
+
+    def resetting(v):
+        tracer.reset()
+        return real(v)
+
+    monkeypatch.setattr(ttrace, "_argstr", resetting)
+    if kind == "instant":
+        tracer.instant("mark", x=1)
+    else:
+        with tracer.span("block", x=1):
+            pass
+    (event,) = tracer.events()
+    assert -1e6 < event["ts"] < 1e6, event
+
+
+def test_reset_racing_instant_from_threads_keeps_one_epoch():
+    """Threads record instants while the main thread resets: every event
+    left in the ring after the last reset is stamped within the time
+    since that reset (a lost epoch read would put one ~1000 s out)."""
+    import sys
+    import time
+
+    tracer = ttrace.Tracer(max_events=1 << 16)
+    stop = threading.Event()
+
+    def record():
+        while not stop.is_set():
+            tracer.instant("i")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    threads = [threading.Thread(target=record) for _ in range(8)]
+    try:
+        for t in threads:
+            t.start()
+        for _ in range(200):
+            tracer._t_epoch -= 1000.0  # each round's epoch starts long ago
+            tracer.reset()
+        t_last = time.perf_counter()
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        stop.set()
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    span_us = (time.perf_counter() - t_last + 1.0) * 1e6
+    assert all(e["ts"] < span_us for e in tracer.events())
+
+
 def test_span_names_reach_the_profiler_host_track():
     """Inside a torch.profiler session a span is also a record_function,
     so its name is on the profiler's host track; outside one, none is
