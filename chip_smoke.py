@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernels,golden,main,sharded,stream,train,serve,e2e,lm_train,
-                                    analysis]
+                                    zoo,analysis]
                           [--out results.json]
     python3 chip_smoke.py --rehearse      # plumbing only, on the CPU
 
@@ -11,7 +11,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
      build of every kernel source in src/repro_torch/kernels/csrc (one
      nvcc per source, all at once), timed, with the registers and spills
      ptxas reported for the bf16 wgmma flash-attention kernel at head_dim
-     256 (gemma-2b's), which must not spill.
+     256 (gemma-2b's), which must not spill, and at 128 and 64
+     (qwen2-moe's and hymba's), reported only.
   2. kernels — each kernel wrapper on tensors on the card, at the main
      path's shapes, against its plain PyTorch version on the same inputs:
      integers bit for bit, dense f32 at rtol 1e-6. Times each kernel, its
@@ -144,6 +145,35 @@ Phases, each of which passes or ends the run with a non-zero exit:
      against 2 steps, a checkpoint, a new Trainer and 2 more: the weights
      and AdamW state must be equal bit for bit.
 
+  9b. zoo — the MoE, SSM and hybrid families (bf16 compute, TF32 off).
+     The flash kernel at qwen2-moe's and hymba's prefill shapes (4 x 4096;
+     16/16 heads at D 128, 25/5 heads at D 64) against ref.mha one query
+     head at a time, timed beside SDPA as in the serve phase. SMOKE of
+     qwen2-moe-a2.7b, kimi-k2-1t-a32b, hymba-1.5b and xlstm-350m on the
+     card (flash route) against the CPU path (chunked), float32: a forward
+     and 8 decode steps within 1e-4 of the largest logit. Then qwen2-moe
+     (14.3 G parameters, 57 GB of f32 weights), hymba-1.5b and xlstm-350m
+     at their published width and depth, one at a time, random weights
+     from a seeded generator. A 4 x 4096 prefill of Piper's tokens through
+     attn_impl="flash" must launch flash_attention exactly once per layer
+     without a window (24, 4, 0). It is held to the chunked route: the
+     first layer's update on the same input in bf16 and, for MoE, the
+     whole model made to take the flash run's routing, within 5e-2
+     relative L2; the whole model in float32 within 1e-3. The free-running
+     bf16 logits' gap (qwen2-moe's routing flips and drops, hymba's
+     rms-normalised Mamba outputs amplify rounding) and, for qwen2-moe,
+     the share of routing choices the routes agree on are printed.
+     ServeEngine serves ENGINE's traffic: the first request of each wave
+     at its last prompt position against the prefill step, gated at 5e-2
+     for xlstm and printed for the others; 4 prompts decoded together in
+     float32 (qwen2-moe at a capacity that drops nothing, on either side)
+     must agree with the first one's prefill within 1e-3. hymba decodes a
+     1088-token prompt through its first superblock (8 layers, the phase's
+     time; every 1024-slot ring wraps) in bf16 and float32 against the
+     chunked prefill (5e-2, 1e-3). hymba and xlstm step a LONG_500K state
+     (batch 1, 524288 positions) 4 times. Prints per model ms per prefill,
+     tokens/s, busy share, launches, peak memory, ms per decode step and
+     the engine's tokens/s, with the card's name and power limit.
   10. analysis — the port's static gate (python -m repro_torch.analysis
      --strict) in-process on the card: planlint, kernelcheck (the shape
      matrix's routes and launches on the card, the CUDA source audit, every
@@ -318,6 +348,31 @@ LM_LR = 3e-4
 # The lm_train path's kernels: Piper's decoded route in preprocess_tokens
 # (the train steps run the chunked route, which has no kernel).
 LM_TRAIN_KERNELS = ("decode_scan", "fused_genvocab", "fused_transform")
+# The zoo phase: the MoE, SSM and hybrid families at their published width
+# and depth (random weights from a seeded generator, f32 at rest, bf16
+# compute, TF32 off), one model at a time. Each prefills ZOO_PREFILL on the
+# flash route and serves ENGINE's traffic; hymba also decodes one prompt of
+# ZOO_RING_PROMPT tokens (past its 1024-token windows, so every ring wraps)
+# and, with xlstm, steps a LONG_500K state. A rehearsal runs the SMOKE
+# configs at ZOO_REHEARSAL's sizes (SMOKE windows are 32).
+ZOO_MODELS = {"qwen2-moe-a2.7b": "qwen2-moe", "hymba-1.5b": "hymba", "xlstm-350m": "xlstm"}
+ZOO_SMOKES = ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "hymba-1.5b", "xlstm-350m")
+ZOO_PREFILL = (4, 4096)
+ZOO_RING_PROMPT = 1088
+ZOO_LONG_STEPS = 4  # decode steps at the last positions of LONG_500K's sequence
+ZOO_REHEARSAL = {"prefill": (2, 128), "ring_prompt": 48}
+ZOO_SMOKE_RUN = {"batch": 2, "seq": 64, "decode_steps": 8}
+# SMOKE on the card against the CPU path, float32 compute, TF32 off: the
+# logits within 1e-4 of their largest value (summation order only; the bound
+# of tests/test_torch_cuda.py::test_lm_smoke_prefill_on_card_matches_cpu).
+ZOO_SMOKE_REL = 1e-4
+# Two float32 routes (the flash kernel's f32 route against the chunked
+# route, MoE with the same routing), relative L2 of the logits: float32
+# rounds at 2^-24, so even a model that magnifies rounding 10^4-fold stays
+# far below this, and a wrong mask or cache slot does not.
+ZOO_F32_REL_L2 = 1e-3
+# The zoo path's kernel: the flash prefill of every layer without a window.
+ZOO_KERNELS = ("flash_attention",)
 # The kernels the analysis phase's audited routes launch at CRITEO: the fused
 # and bytes-in routes, the count plane, the use_kernels chain, and decode.
 ANALYSIS_KERNELS = ("decode_scan", "fused_genvocab", "fused_genvocab_slabs", "fused_transform",
@@ -351,8 +406,11 @@ FLASH_REL_L2 = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
 
 
 # The D 256 instantiation of the bf16 wgmma kernel (gemma-2b's), by its
-# mangled name in ptxas's log; it must build without spills.
+# mangled name in ptxas's log; it must build without spills. The D 128
+# (qwen2-moe's) and D 64 (hymba's) instantiations are reported beside it.
 FLASH_WGMMA_D256 = "flash_wgmma_kernelILi256E"
+FLASH_WGMMA_OTHERS = {"flash_wgmma_d128": "flash_wgmma_kernelILi128E",
+                      "flash_wgmma_d64": "flash_wgmma_kernelILi64E"}
 
 
 class SmokeFailure(Exception):
@@ -448,13 +506,15 @@ def device_kernels(torch, fn, calls: int = 5, traces: int = 6) -> dict:
     """Device kernels and copies by name over ``calls`` calls of ``fn``:
     the largest count each name reached in one of up to ``traces`` traces
     of :func:`traced_kernels`. A trace now and then drops events (never
-    adds one), so the traces stop once one holds ``calls`` events of one
-    name."""
+    adds one), so the traces stop only once every name's count is a whole
+    multiple of ``calls``: one name complete says nothing of another's
+    (a decode call's trace held its 5 decodes and 4 of its 5 vocab
+    updates)."""
     found = {}
     for _ in range(traces):
         for e in traced_kernels(torch, fn, calls):
             found[e.key] = max(found.get(e.key, 0), e.count)
-        if calls in found.values():
+        if found and all(n % calls == 0 for n in found.values()):
             break
     return found
 
@@ -899,9 +959,12 @@ class Smoke:
                        if "registers" in ln or "Compiling entry" in ln]
                  for src, log in logs.items()}
         flash = ptxas_usage(logs["flash_attention"], FLASH_WGMMA_D256)
+        others = {k: ptxas_usage(logs["flash_attention"], entry)
+                  for k, entry in FLASH_WGMMA_OTHERS.items()}
         emit({"phase": "build", "seconds": seconds,
               "libraries": {k: str(v.relative_to(ROOT)) for k, v in paths.items()},
-              "ptxas": ptxas, "flash_wgmma_d256": flash})
+              "ptxas": ptxas, "flash_wgmma_d256": flash, **others})
+        info.update(others)
         expect(flash.get("spill_stores") == 0 and flash.get("spill_loads") == 0,
                f"flash_attention.cu: the D 256 wgmma kernel spills ({flash})")
         info["flash_wgmma_d256"] = flash
@@ -2892,8 +2955,9 @@ class Smoke:
         """Times of the kernel, its plain version and SDPA at one prefill
         shape (random bf16 q, k, v). ``errs`` is (max abs, segment relative
         L2) from the checks at this shape; None at 32K, where the plain
-        version runs one query head at a time (all 8 heads' float32 logits
-        take 34 GB), and the errors are measured here.
+        version runs one query head at a time with the kv head it reads (all
+        8 heads' float32 logits take 34 GB), and at the zoo phase's shapes,
+        and the errors are measured here.
 
         The kernel, SDPA and the plain version are timed alike, by CUDA
         events around calls back to back, the kernel and SDPA in the order
@@ -2913,17 +2977,22 @@ class Smoke:
         v = torch.randn((batch, hkv, seq, d), generator=gen, device=dev).to(torch.bfloat16)
         per_head = errs is None
         err, rel = errs if errs else (0.0, 0.0)
+        group = hq // hkv
+
+        def head(h):  # query head h and the kv head it reads
+            g = h // group
+            return q[:, h:h + 1], k[:, g:g + 1], v[:, g:g + 1]
 
         def plain():
             if per_head:
-                return [faref.mha(q[:, h:h + 1], k, v) for h in range(hq)]
+                return [faref.mha(*head(h)) for h in range(hq)]
             return faref.mha(q, k, v)
 
         if per_head:
             got = faops.flash_attention(q, k, v)
             rel_tol = FLASH_REL_L2[str(torch.bfloat16)]
             for h in range(hq):
-                want = faref.mha(q[:, h:h + 1], k, v)
+                want = faref.mha(*head(h))
                 expect(bool(torch.allclose(got[:, h:h + 1].float(), want.float(), atol=2e-2,
                                            rtol=2e-2)),
                        f"flash_attention at [{batch}, {hq}, {seq}, {d}] head {h}: beyond 2e-2")
@@ -3005,7 +3074,6 @@ class Smoke:
         from repro_torch.core import pipeline as P
         from repro_torch.data import loader
         from repro_torch.models import lm
-        from repro_torch.serve import engine
         from repro_torch.train import steps
 
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3082,54 +3150,7 @@ class Smoke:
         result["prefill"] = prefill_stats
 
         # the engine: 8 requests of Piper prompts, two waves of 4 slots
-        e = ENGINE
-        prompts = loader.PiperTokenBatches(sparse, cfg.vocab_size, e["requests"],
-                                           e["prompt_len"])(1)["tokens"]
-        eng = engine.ServeEngine(model, params, batch_slots=e["slots"], cache_len=e["cache_len"])
-        reqs = [engine.Request(prompt=p.tolist(), max_new_tokens=e["new_tokens"])
-                for p in prompts]
-        seen = []  # (slot 0's position, its logits) of each step
-        step = eng._step
-
-        def spy(p, state, token, pos):
-            out = step(p, state, token, pos)
-            seen.append((int(eng.slot_pos[0]), out[0][0].detach().clone()))
-            return out
-
-        eng._step = spy
-        for r in reqs:
-            eng.submit(r)
-        reset_counters(kernels)
-        self.sync()
-        t0 = time.perf_counter()
-        eng.run_until_drained()
-        self.sync()
-        engine_s = time.perf_counter() - t0
-        engine_launches = {k: v.launches for k, v in kernels.items() if v.launches}
-        expect(all(r.done and len(r.generated) == e["new_tokens"] for r in reqs),
-               f"serve engine: generated {[len(r.generated) for r in reqs]}, expected "
-               f"{e['new_tokens']} each")
-        n_tokens = sum(len(r.generated) for r in reqs)
-        last = [lg for pos, lg in seen if pos == e["prompt_len"] - 1][0]  # request 0's
-        want = prefill(params, {"tokens": torch.tensor(reqs[0].prompt, device=dev)[None]})[0]
-        rel = self._rel_l2(last, want)
-        result["engine"] = {
-            **e, "steps": len(seen), "seconds": engine_s, "ms_per_step": engine_s / len(seen) * 1e3,
-            "tokens_per_s": n_tokens / engine_s, "generated_tokens": n_tokens,
-            "launches": engine_launches, "vs_prefill_rel_l2": rel, "vs_prefill_argmax_agree": bool(
-                int(last.argmax()) == int(want.argmax())),
-            "request0_generated": reqs[0].generated}
-        expect(rel <= SERVE_REL_L2, f"serve engine: request 0's logits at its last prompt "
-               f"position differ from the prefill step's by {rel} > {SERVE_REL_L2}")
-        # where one more decode step's device time goes, and its busy share
-        token = torch.zeros(e["slots"], dtype=torch.int32, device=dev)
-        prof = self.profile(lambda: eng._step(params, eng.state, token, 0))
-        if prof is not None:
-            busy = sum(r["ms"] for r in prof)
-            result["engine"].update(
-                profiled_step={"device_ms": busy, "device_launches": sum(r["count"] for r in prof),
-                               "top": prof[:8]},
-                device_busy_share=busy / result["engine"]["ms_per_step"])
+        result["engine"] = self._engine(model, params, sparse, kernels, gated=True)
         if not self.rehearse:
             result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         result["seconds"] = time.perf_counter() - t_phase
@@ -3440,6 +3461,457 @@ class Smoke:
         if not self.rehearse:
             torch.cuda.empty_cache()
 
+    # -- phase 9b ------------------------------------------------------- #
+    def zoo(self, data) -> tuple[dict, dict]:
+        """The MoE, SSM and hybrid families: the flash kernel's records at
+        the two new shapes, SMOKE of the four architectures on the card
+        against the CPU, then qwen2-moe-a2.7b, hymba-1.5b and xlstm-350m at
+        full width and depth. Returns (kernel records by entry name, kernel
+        → launches per prefill tag). Prints what it measured, also when a
+        check fails."""
+        result = {"phase": "zoo", "nvidia_smi": self.smi}
+        try:
+            return self._zoo(data, result)
+        finally:
+            emit(result)
+
+    def _zoo(self, data, result: dict) -> tuple[dict, dict]:
+        torch, dev = self.torch, self.dev
+        from repro_torch import configs
+        from repro_torch.core import pipeline as P
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t_phase = time.perf_counter()
+        pipe = P.PiperPipeline(P.PipelineConfig(device=str(dev)))
+        outs = list(pipe.run_stream(lambda: iter(data["utf8_chunks"])))
+        sparse = torch.cat([o.sparse[o.valid] for o in outs]).cpu().numpy()
+        del outs
+
+        batch, seq = ZOO_REHEARSAL["prefill"] if self.rehearse else ZOO_PREFILL
+        records = {}
+        for arch in ("qwen2-moe-a2.7b", "hymba-1.5b"):
+            cfg = configs.get_smoke(arch) if self.rehearse else configs.get(arch)
+            records[f"flash_attention@{ZOO_MODELS[arch]}-b{batch}s{seq}"] = self._flash_record(
+                cfg, batch, seq, None)
+            self._free()
+        result["smoke"] = {arch: self._zoo_smoke(configs.get_smoke(arch), sparse)
+                           for arch in ZOO_SMOKES}
+        models, launches = {}, {}
+        for arch, name in ZOO_MODELS.items():
+            cfg = configs.get_smoke(arch) if self.rehearse else configs.get(arch)
+            tag = f"{name}-b{batch}s{seq}"
+            models[arch] = {"config": cfg.name, "layers": cfg.n_layers,
+                            "params": cfg.param_count(), "nvidia_smi": self.smi}
+            launches[tag] = self._zoo_model(cfg, sparse, batch, seq, models[arch])
+            self._free()
+        result["models"] = models
+        result["seconds"] = time.perf_counter() - t_phase
+        result["kernels"] = records
+        return records, launches
+
+    def _free(self) -> None:
+        """Drop what a model left on the card and start its peak anew."""
+        gc.collect()
+        if not self.rehearse:
+            self.torch.cuda.empty_cache()
+            self.torch.cuda.reset_peak_memory_stats()
+
+    def _zoo_smoke(self, cfg, sparse) -> dict:
+        """``cfg`` (a SMOKE config) on the card on the flash route and on the
+        CPU on the chunked route from the same weights, float32 compute: the
+        logits of a forward pass and of ZOO_SMOKE_RUN's decode steps within
+        ZOO_SMOKE_REL of their largest value."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.data import loader
+        from repro_torch.models import lm
+        from repro_torch.train.tree import tree_map
+
+        run = ZOO_SMOKE_RUN
+        cpu = lm.LM(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(0))
+        card = lm.LM(cfg, attn_impl="flash", device=dev)
+        card_params = tree_map(lambda t: t.to(dev), params)
+        tokens = torch.from_numpy(
+            loader.PiperTokenBatches(sparse, cfg.vocab_size, run["batch"], run["seq"])(2)["tokens"])
+        f32 = torch.float32
+        want = cpu.forward(params, tokens, compute_dtype=f32)
+        got = card.forward(card_params, tokens.to(dev), compute_dtype=f32).cpu()
+        scale = float(want.abs().max())
+        out = {"forward_max_abs": float((got - want).abs().max()), "scale": scale}
+        expect(out["forward_max_abs"] <= ZOO_SMOKE_REL * scale,
+               f"zoo SMOKE {cfg.name}: the card's forward differs from the CPU's by "
+               f"{out['forward_max_abs']} > {ZOO_SMOKE_REL} of {scale}")
+        cs = cpu.init_decode_state(run["batch"], run["decode_steps"], dtype=f32)
+        gs = card.init_decode_state(run["batch"], run["decode_steps"], dtype=f32)
+        worst = 0.0
+        for pos in range(run["decode_steps"]):
+            w, cs = cpu.decode_step(params, tokens[:, pos], cs, pos, compute_dtype=f32)
+            g, gs = card.decode_step(card_params, tokens[:, pos].to(dev), gs, pos,
+                                     compute_dtype=f32)
+            worst = max(worst, float((g.cpu() - w).abs().max()) / float(w.abs().max()))
+        out["decode_max_rel"] = worst
+        expect(worst <= ZOO_SMOKE_REL, f"zoo SMOKE {cfg.name}: the card's decode steps differ "
+               f"from the CPU's by {worst} > {ZOO_SMOKE_REL} of the largest logit")
+        return out
+
+    def _routing_spy(self, replay=None):
+        """A context that records each MoE layer's routing (``mlp.moe_route``'s
+        dict) into the list it yields. With ``replay`` (such a list from
+        another run) each layer takes that run's experts, positions and keep
+        masks, its gates renormalised from its own router probabilities:
+        the two runs then make the same discrete choices."""
+        import torch
+        from repro_torch.models import mlp
+
+        @contextlib.contextmanager
+        def spying():
+            real, seen = mlp.moe_route, []
+
+            def spy(xt, params, cfg):
+                r = real(xt, params, cfg)
+                if replay is not None:
+                    then = replay[len(seen)]
+                    gates = torch.gather(r["probs"], 1, then["experts"])
+                    r = dict(r, experts=then["experts"], positions=then["positions"],
+                             keep=then["keep"], gates=gates / gates.sum(-1, keepdim=True))
+                seen.append(r)
+                return r
+
+            mlp.moe_route = spy
+            try:
+                yield seen
+            finally:
+                mlp.moe_route = real
+
+        return spying()
+
+    def _zoo_model(self, cfg, sparse, batch: int, seq: int, out: dict) -> dict:
+        """One full-width model: its flash-route prefill (launches counted,
+        timed, profiled, held to the chunked route), the engine's traffic,
+        hymba's ring wrap, the LONG_500K state. Returns the prefill's
+        launches by kernel."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.configs import shapes
+        from repro_torch.data import loader
+        from repro_torch.models import lm
+        from repro_torch.train import steps
+
+        kernels = counters()
+        t0 = time.perf_counter()
+        model = lm.LM(cfg, attn_impl="flash", device=dev)
+        params = model.init(torch.Generator(dev).manual_seed(0))
+        self.sync()
+        out["init_s"] = time.perf_counter() - t0
+        prefill = steps.make_prefill_step(model)
+        tokens = torch.from_numpy(
+            loader.PiperTokenBatches(sparse, cfg.vocab_size, batch, seq)(0)["tokens"]).to(dev)
+        n_flash = sum(1 for s in cfg.superblock
+                      if s.kind in ("attn", "hymba") and not s.window) * cfg.n_superblocks
+        moe = cfg.moe is not None
+        with self._routing_spy() as flash_routes:
+            reset_counters(kernels)
+            logits = prefill(params, {"tokens": tokens})
+            self.sync()
+        got = {k: v.launches for k, v in kernels.items()}
+        want = dict.fromkeys(kernels, 0)
+        want["flash_attention"] = 0 if self.rehearse else n_flash
+        expect(got == want, f"zoo {cfg.name} prefill: launched "
+               f"{ {k: v for k, v in got.items() if v} }, expected {n_flash} flash_attention")
+        expect(tuple(logits.shape) == (batch, cfg.vocab_size) and
+               bool(torch.isfinite(logits).all()), f"zoo {cfg.name} prefill: logits of shape "
+               f"{tuple(logits.shape)}, or not finite")
+        secs = self.wall_seconds(lambda: prefill(params, {"tokens": tokens}), n=2)
+        med = statistics.median(secs)
+        stats = {"batch": batch, "seq": seq, "seconds": secs, "ms_per_call": med * 1e3,
+                 "tokens_per_s": batch * seq / med, "flash_layers": n_flash,
+                 "launches": {k: v for k, v in got.items() if v}}
+        if n_flash:
+            self._zoo_routes(model, params, tokens, logits, flash_routes, stats)
+        del flash_routes
+        prof = self.profile(lambda: prefill(params, {"tokens": tokens}))
+        if prof is not None:
+            busy = sum(r["ms"] for r in prof)
+            stats.update(device_busy_share=busy / stats["ms_per_call"],
+                         profiled_call={"device_ms": busy, "top": prof[:8]})
+        out["prefill"] = stats
+        del logits, tokens
+        if not self.rehearse:
+            out["prefill_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        # the engine's bf16 logits are gated for xlstm; they are printed for
+        # qwen2-moe, whose 64-token prefill drops and routes otherwise than
+        # its 4-token decode steps (capacity 1.25), and for hymba, whose
+        # rms-normalised Mamba outputs amplify bf16 rounding (0.65 relative
+        # L2 on the H100, where float32 agrees within 1.1e-4). Every
+        # model's decode is held to its prefill in float32 below, qwen2-moe
+        # at a capacity of every token, so that neither side drops any.
+        out["engine"] = self._engine(model, params, sparse, kernels,
+                                     gated=cfg.family == "ssm")
+        e = ENGINE
+        prompts = loader.PiperTokenBatches(sparse, cfg.vocab_size, e["requests"],
+                                           e["prompt_len"])(1)["tokens"][:e["slots"]]
+        f32_model = model
+        if moe:
+            f32_model = lm.LM(dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)),
+                attn_impl="flash", device=dev)
+        f32 = self._zoo_decode_f32(f32_model, params, torch.from_numpy(prompts).to(dev),
+                                   e["cache_len"])
+        out["engine"].update({f"f32_decode_{k}": v for k, v in f32.items()})
+        expect(f32["dropped"] == 0, f"zoo {cfg.name}: the float32 decode check dropped "
+               f"{f32['dropped']} routing choices")
+        expect(f32["vs_prefill_rel_l2"] <= ZOO_F32_REL_L2, f"zoo {cfg.name}: float32 decode of "
+               f"{e['slots']} prompts differs from the prefill of the first by "
+               f"{f32['vs_prefill_rel_l2']} > {ZOO_F32_REL_L2}")
+        if cfg.family == "hybrid":
+            out["ring_wrap"] = self._zoo_ring(model, params, sparse)
+        if cfg.sub_quadratic:
+            out["long_500k"] = self._zoo_long(model, params, sparse, shapes.LONG_500K)
+        if not self.rehearse:
+            out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        return got
+
+    def _zoo_routes(self, model, params, tokens, logits, flash_routes, stats: dict) -> None:
+        """The flash prefill (``logits``, bf16, routing ``flash_routes``)
+        against the chunked route, the reference's. In bf16 the whole model
+        (for MoE also the share of routing choices the routes agree on, the
+        dropped share by layer, and the chunked route made to take the
+        flash run's experts, positions and drops), and the first layer
+        alone on the same input; in float32 the whole model (the kernel's
+        f32 route; MoE with the flash run's routing). Gated: the first
+        layer and MoE's same-routing logits within SERVE_REL_L2, float32
+        within ZOO_F32_REL_L2. The free-running bf16 logits' gap is
+        printed: MoE routing flips and drops, and hymba's rms-normalised
+        Mamba outputs, move it past SERVE_REL_L2 with rounding alone."""
+        torch, dev, cfg = self.torch, self.dev, model.cfg
+        from repro_torch.models import lm
+        from repro_torch.train import steps
+
+        moe = cfg.moe is not None
+        chunked = steps.make_prefill_step(lm.LM(cfg, attn_impl="chunked", device=dev))
+        with self._routing_spy() as chunked_routes:
+            want = chunked(params, {"tokens": tokens})
+        stats.update(vs_chunked_rel_l2=self._rel_l2(logits, want),
+                     vs_chunked_argmax_agree=float(
+                         (logits.argmax(-1) == want.argmax(-1)).float().mean()))
+        del want
+        if moe:
+            def agree(a_routes, b_routes):
+                same = sum(int((a["experts"] == b["experts"]).sum())
+                           for a, b in zip(a_routes, b_routes))
+                return same / sum(a["experts"].numel() for a in a_routes)
+
+            stats.update(routing_agree_share=agree(flash_routes, chunked_routes),
+                         dropped_share=[float((~r["keep"]).float().mean())
+                                        for r in flash_routes])
+            with self._routing_spy(replay=flash_routes):
+                same = chunked(params, {"tokens": tokens})
+            stats["vs_chunked_same_routing_rel_l2"] = self._rel_l2(logits, same)
+            del same
+            expect(stats["vs_chunked_same_routing_rel_l2"] <= SERVE_REL_L2,
+                   f"zoo {cfg.name} prefill: with the same routing, flash and chunked differ by "
+                   f"{stats['vs_chunked_same_routing_rel_l2']} > {SERVE_REL_L2}")
+        del chunked_routes
+        # the first layer alone, the same input (the embedding) on both routes
+        spec, p0 = cfg.superblock[0], params["blocks"][0][0]
+        with torch.no_grad():
+            x = params["embed"][tokens.to(torch.int64)].to(torch.bfloat16)
+            a, _ = lm._block_forward(x, p0, spec, cfg, impl="flash")
+            b, _ = lm._block_forward(x, p0, spec, cfg, impl="chunked")
+        stats["first_layer_vs_chunked_rel_l2"] = self._rel_l2(a - x, b - x)
+        del x, a, b
+        expect(stats["first_layer_vs_chunked_rel_l2"] <= SERVE_REL_L2,
+               f"zoo {cfg.name}: the first layer's update differs between flash and chunked by "
+               f"{stats['first_layer_vs_chunked_rel_l2']} > {SERVE_REL_L2}")
+        # float32 compute, the whole model
+        f32 = torch.float32
+        flash32 = steps.make_prefill_step(model)
+        with self._routing_spy() as routes32:
+            got32 = flash32(params, {"tokens": tokens}, compute_dtype=f32)
+        with self._routing_spy(replay=routes32 if moe else None):
+            want32 = chunked(params, {"tokens": tokens}, compute_dtype=f32)
+        stats["f32_vs_chunked_rel_l2"] = self._rel_l2(got32, want32)
+        del got32, want32, routes32
+        expect(stats["f32_vs_chunked_rel_l2"] <= ZOO_F32_REL_L2,
+               f"zoo {cfg.name} prefill in float32: flash and chunked differ by "
+               f"{stats['f32_vs_chunked_rel_l2']} > {ZOO_F32_REL_L2}")
+
+    def _engine(self, model, params, sparse, kernels, gated: bool) -> dict:
+        """ENGINE's traffic (8 requests of Piper prompts, two waves of 4
+        slots) through ServeEngine, and slot 0's request of each wave (0,
+        then 4, which takes over request 0's slot and its caches and
+        states) at its last prompt position against the prefill step on its
+        prompt, within SERVE_REL_L2 when ``gated``; then where one more
+        decode step's device time goes, and its busy share."""
+        torch, dev, cfg = self.torch, self.dev, model.cfg
+        from repro_torch.data import loader
+        from repro_torch.serve import engine
+        from repro_torch.train import steps
+
+        e = ENGINE
+        prompts = loader.PiperTokenBatches(sparse, cfg.vocab_size, e["requests"],
+                                           e["prompt_len"])(1)["tokens"]
+        eng = engine.ServeEngine(model, params, batch_slots=e["slots"], cache_len=e["cache_len"])
+        reqs = [engine.Request(prompt=p.tolist(), max_new_tokens=e["new_tokens"])
+                for p in prompts]
+        seen = []  # (slot 0's position, its logits) of each step
+        step = eng._step
+
+        def spy(p, state, token, pos):
+            res = step(p, state, token, pos)
+            seen.append((int(eng.slot_pos[0]), res[0][0].detach().clone()))
+            return res
+
+        eng._step = spy
+        for r in reqs:
+            eng.submit(r)
+        reset_counters(kernels)
+        self.sync()
+        t0 = time.perf_counter()
+        eng.run_until_drained()
+        self.sync()
+        engine_s = time.perf_counter() - t0
+        expect(all(r.done and len(r.generated) == e["new_tokens"] for r in reqs),
+               f"{cfg.name} engine: generated {[len(r.generated) for r in reqs]}, expected "
+               f"{e['new_tokens']} each")
+        n_tokens = sum(len(r.generated) for r in reqs)
+        lasts = [lg for pos, lg in seen if pos == e["prompt_len"] - 1]  # slot 0's, each wave
+        expect(len(lasts) == 2, f"{cfg.name} engine: slot 0 reached its last prompt position "
+               f"{len(lasts)} times, expected 2")
+        prefill = steps.make_prefill_step(model)
+        rels, agree = [], []
+        for last, req in zip(lasts, (reqs[0], reqs[e["slots"]])):
+            want = prefill(params, {"tokens": torch.tensor(req.prompt, device=dev)[None]})[0]
+            rels.append(self._rel_l2(last, want))
+            agree.append(bool(int(last.argmax()) == int(want.argmax())))
+        rec = {**e, "steps": len(seen), "seconds": engine_s,
+               "ms_per_step": engine_s / len(seen) * 1e3, "tokens_per_s": n_tokens / engine_s,
+               "generated_tokens": n_tokens,
+               "launches": {k: v.launches for k, v in kernels.items() if v.launches},
+               "vs_prefill_rel_l2": rels[0], "wave2_vs_prefill_rel_l2": rels[1],
+               "vs_prefill_gated": gated, "vs_prefill_argmax_agree": agree,
+               "request0_generated": reqs[0].generated}
+        if gated:
+            expect(max(rels) <= SERVE_REL_L2, f"{cfg.name} engine: requests 0 and "
+                   f"{e['slots']}'s logits at their last prompt position differ from the "
+                   f"prefill step's by {rels} > {SERVE_REL_L2}")
+        token = torch.zeros(e["slots"], dtype=torch.int32, device=dev)
+        prof = self.profile(lambda: eng._step(params, eng.state, token, 0))
+        if prof is not None:
+            busy = sum(r["ms"] for r in prof)
+            rec.update(profiled_step={"device_ms": busy,
+                                      "device_launches": sum(r["count"] for r in prof),
+                                      "top": prof[:8]},
+                       device_busy_share=busy / rec["ms_per_step"])
+        return rec
+
+    def _zoo_decode_f32(self, model, params, tokens, cache_len: int) -> dict:
+        """``tokens [B, n]`` decoded together in float32 (caches and
+        compute) into a cache of ``cache_len``: the relative L2 of row 0's
+        last logits from the float32 prefill of row 0 alone; for MoE, the
+        routing choices either side dropped and the share of row 0's
+        (token, layer) expert sets the two agree on."""
+        torch = self.torch
+        from repro_torch.train import steps
+
+        f32, (b, n) = torch.float32, tokens.shape
+        state = model.init_decode_state(b, cache_len, dtype=f32)
+        with torch.no_grad(), self._routing_spy() as dec:
+            for pos in range(n):
+                logits, state = model.decode_step(params, tokens[:, pos], state, pos,
+                                                  compute_dtype=f32)
+        with self._routing_spy() as pre:
+            want = steps.make_prefill_step(model)(params, {"tokens": tokens[:1]},
+                                                  compute_dtype=f32)
+        out = {"vs_prefill_rel_l2": self._rel_l2(logits[:1], want),
+               "dropped": sum(int((~r["keep"]).sum()) for r in dec + pre)}
+        if pre:
+            layers = len(pre)
+            same = [torch.equal(dec[pos * layers + i]["experts"][0].sort().values,
+                                pre[i]["experts"][pos].sort().values)
+                    for pos in range(n) for i in range(layers)]
+            out["routing_agree_share"] = sum(same) / len(same)
+        return out
+
+    def _zoo_ring(self, model, params, sparse) -> dict:
+        """One prompt longer than the sliding windows, decoded token by token
+        into a cache of twice its length (every windowed layer's ring wraps;
+        the global layers' caches do not), through the first superblock (8
+        layers at full width, 1 global and 7 windowed: the phase's time),
+        in bf16 and in float32: the last position's logits against the
+        chunked route's prefill over the same tokens (bf16 within
+        SERVE_REL_L2, float32 within ZOO_F32_REL_L2), and every ring's slot
+        positions the last W tokens'."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.data import loader
+        from repro_torch.models import lm
+        from repro_torch.train import steps
+
+        cfg = dataclasses.replace(model.cfg, n_superblocks=1)
+        cut = lm.LM(cfg, attn_impl="flash", device=dev)
+        p1 = dict(params, blocks=params["blocks"][:1])
+        n = ZOO_REHEARSAL["ring_prompt"] if self.rehearse else ZOO_RING_PROMPT
+        window = max(s.window for s in cfg.superblock)
+        expect(n > window, f"zoo ring: a prompt of {n} does not wrap windows of {window}")
+        tokens = torch.from_numpy(
+            loader.PiperTokenBatches(sparse, cfg.vocab_size, 1, n)(3)["tokens"]).to(dev)
+        chunked = steps.make_prefill_step(lm.LM(cfg, attn_impl="chunked", device=dev))
+        rec = {"prompt_tokens": n, "window": window, "layers": cfg.n_layers,
+               "cut": f"depth {model.cfg.n_layers} -> {cfg.n_layers} (one superblock: "
+                      f"{sum(1 for s in cfg.superblock if not s.window)} global, "
+                      f"{sum(1 for s in cfg.superblock if s.window)} windowed layers), "
+                      "the phase's time"}
+        for name, dtype, tol in (("bf16", torch.bfloat16, SERVE_REL_L2),
+                                 ("f32", torch.float32, ZOO_F32_REL_L2)):
+            state = cut.init_decode_state(1, 2 * n, dtype=dtype)
+            self.sync()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for pos in range(n):
+                    logits, state = cut.decode_step(p1, tokens[:, pos], state, pos,
+                                                    compute_dtype=dtype)
+            self.sync()
+            secs = time.perf_counter() - t0
+            want = chunked(p1, {"tokens": tokens}, compute_dtype=dtype)
+            rel = self._rel_l2(logits, want)
+            rings = [c["kv"]["slot_pos"] for sb in state for c in sb if "slot_pos" in c["kv"]]
+            expect(len(rings) == sum(1 for s in cfg.superblock if s.window),
+                   f"zoo ring: {len(rings)} ring caches")
+            expect(all(sorted(r.tolist()) == list(range(n - r.numel(), n)) for r in rings),
+                   "zoo ring: a ring's slots do not hold the last positions")
+            rec[name] = {"decode_seconds": secs, "ms_per_step": secs / n * 1e3,
+                         "vs_chunked_rel_l2": rel, "ring_caches": len(rings),
+                         "argmax_agree": bool(int(logits.argmax()) == int(want.argmax()))}
+            expect(rel <= tol, f"zoo ring ({name}): the decode's last logits differ from the "
+                   f"chunked prefill's by {rel} (relative L2) > {tol}")
+        return rec
+
+    def _zoo_long(self, model, params, sparse, shape) -> dict:
+        """The LONG_500K decode state (batch 1, cache 524288) and
+        ZOO_LONG_STEPS decode steps at its last positions: the state's
+        bytes, ms per step, finite logits."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.data import loader
+        from repro_torch.train.tree import leaves
+
+        state = model.init_decode_state(shape.global_batch, shape.seq_len)
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
+        tokens = torch.from_numpy(loader.PiperTokenBatches(
+            sparse, model.cfg.vocab_size, 1, ZOO_LONG_STEPS)(4)["tokens"]).to(dev)
+        times = []
+        with torch.no_grad():
+            for i, pos in enumerate(range(shape.seq_len - ZOO_LONG_STEPS, shape.seq_len)):
+                self.sync()
+                t0 = time.perf_counter()
+                logits, state = model.decode_step(params, tokens[:, i], state, pos)
+                self.sync()
+                times.append(time.perf_counter() - t0)
+        expect(bool(torch.isfinite(logits).all()), "zoo LONG_500K: logits not finite")
+        del state
+        return {"seq_len": shape.seq_len, "batch": shape.global_batch, "state_bytes": n_bytes,
+                "steps": ZOO_LONG_STEPS, "step_seconds": times,
+                "ms_per_step": statistics.median(times) * 1e3}
+
     # -- phase 10 ------------------------------------------------------- #
     def analysis(self) -> dict:
         """The static gate (repro_torch.analysis) on the card: the whole
@@ -3558,7 +4030,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,golden,main,sharded,stream,train,serve,e2e,lm_train,"
-                            "analysis")
+                            "zoo,analysis")
     ap.add_argument("--out", default=None,
                     help="also write the kernel summary and every printed record to this JSON file")
     ap.add_argument("--rehearse", action="store_true",
@@ -3582,10 +4054,10 @@ def main(argv=None) -> int:
     device = smoke.device()
     records, main_launches, train_launches, serve_launches = {}, None, None, None
     stream_launches = e2e_launches = lm_launches = sharded_launches = None
-    analysis_launches = None
+    analysis_launches = zoo_launches = None
     rows = REHEARSAL_ROWS if args.rehearse else ROWS
     data = (make_data(np, rows)
-            if phases & {"kernels", "main", "sharded", "stream", "train", "serve", "e2e"}
+            if phases & {"kernels", "main", "sharded", "stream", "train", "serve", "e2e", "zoo"}
             else None)
     if "kernels" in phases:
         records = smoke.kernels(data)
@@ -3639,6 +4111,15 @@ def main(argv=None) -> int:
                 expect(lm_launches["lm_train"][name] > 0, f"lm_train path: {name} was never "
                        "launched")
 
+    if "zoo" in phases:
+        zoo_records, zoo_launches = smoke.zoo(data)
+        records.update(zoo_records)
+        if not args.rehearse:
+            for name in ZOO_KERNELS:
+                expect(all(m[name] > 0 for t, m in zoo_launches.items()
+                           if not t.startswith("xlstm")),
+                       f"zoo path: {name} was not launched in every qwen2-moe and hymba prefill")
+
     if "analysis" in phases:
         analysis_launches = smoke.analysis()
         if not args.rehearse:
@@ -3647,10 +4128,11 @@ def main(argv=None) -> int:
                        "launched")
 
     # launches on the paths: the main, sharded, stream, train and e2e phases'
-    # per range, the serve phase's per prefill, the lm_train phase's, the
-    # analysis phase's audited routes
+    # per range, the serve and zoo phases' per prefill, the lm_train phase's,
+    # the analysis phase's audited routes
     paths = [m for m in (main_launches, sharded_launches, stream_launches, train_launches,
-                         serve_launches, e2e_launches, lm_launches, analysis_launches)
+                         serve_launches, e2e_launches, lm_launches, zoo_launches,
+                         analysis_launches)
              if m is not None]
     kernels = []
     for key, rec in records.items():
@@ -3672,7 +4154,7 @@ def main(argv=None) -> int:
             "launch_floor_ms": rec.get("launch_floor_ms", smoke.floor_ms),
             "on_main_path": name in (PATH_KERNELS + SHARDED_KERNELS + STREAM_KERNELS
                                      + TRAIN_KERNELS + SERVE_KERNELS + E2E_KERNELS
-                                     + LM_TRAIN_KERNELS + ANALYSIS_KERNELS),
+                                     + LM_TRAIN_KERNELS + ZOO_KERNELS + ANALYSIS_KERNELS),
             "shape": rec["shape"],
         })
     seconds = time.perf_counter() - t_start

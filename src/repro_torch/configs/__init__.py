@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
 Counterpart of ``repro/configs/__init__.py`` for the architectures the
-port runs. ``get(arch_id)`` → the full ``ModelConfig``; ``get_smoke`` →
+port runs: the dense, MoE, SSM and hybrid decoder-only families. ``get(arch_id)`` → the full ``ModelConfig``; ``get_smoke`` →
 the reduced config for CPU tests. ``piper_dlrm`` is the tabular workload
 and is imported on its own.
 """
@@ -12,13 +12,18 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-# arch id → module name: the reference's dense decoder-only architectures;
-# its other six come with the rest of the model zoo (ROADMAP queue 1 item 10)
+# arch id → module name: the reference's decoder-only architectures; its
+# encoder-decoder (whisper-small) and vision (llama-3.2-vision-90b) ones come
+# with cross-attention (ROADMAP queue 1 item 10, slice 18)
 _MODULES = {
     "command-r-plus-104b": "command_r_plus_104b",
     "minitron-8b": "minitron_8b",
     "gemma-2b": "gemma_2b",
     "gemma-7b": "gemma_7b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "xlstm-350m": "xlstm_350m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -28,7 +33,8 @@ def _module(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(
             f"arch {arch_id!r} is not ported (known: {sorted(_MODULES)}); the reference's "
-            "other architectures come with the rest of the model zoo (ROADMAP queue 1 item 10)")
+            "encoder-decoder and vision architectures come with cross-attention (ROADMAP queue 1 "
+            "item 10, slice 18)")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
 
 

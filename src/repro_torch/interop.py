@@ -9,9 +9,11 @@ package's loop ① built continues in the port's, and the reverse.
 into the port's, so both compile one plan. The DLRM's parameters and its
 AdamW state move as the JAX package's trees of numpy arrays, so both
 packages train from the same weights; the language model's parameters
-move the same way (:func:`lm_params_from_numpy`), and so does an LM
-trainer's state (:func:`lm_train_state_to_numpy`), which is the tree its
-checkpoints hold.
+move the same way (:func:`lm_params_from_numpy`, every layer kind's
+leaves: attention, MoE, Mamba, mLSTM, sLSTM), and so do an LM trainer's
+state (:func:`lm_train_state_to_numpy`), which is the tree its checkpoints
+hold, and an LM's decode state (:func:`lm_decode_state_to_numpy`: KV
+caches, ring slots and recurrent states).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from repro_torch.core import plan as plan_lib
 from repro_torch.core import vocab as vocab_lib
 from repro_torch.models import dlrm as dlrm_lib
 from repro_torch.models import lm as lm_lib
-from repro_torch.train.tree import tree_map
+from repro_torch.train.tree import leaves, tree_map
 
 
 def _int32(x, name: str, ndim: int, device) -> torch.Tensor:
@@ -243,3 +245,36 @@ def lm_train_state_like(cfg) -> dict:
     params["blocks"] = tuple(tree_map(stacked, p) for p in skeleton["blocks"][0])
     step = torch.empty((), dtype=torch.int32, device="meta")
     return {"params": params, "opt": {"m": params, "v": params, "step": step}}
+
+
+def lm_decode_state_to_numpy(state) -> tuple:
+    """The port's ``LM`` decode state (``[superblock][spec]`` dicts) → the
+    JAX package's: a tuple of per-spec dicts, each leaf stacked on a leading
+    ``n_superblocks`` axis. Floating leaves become float32 arrays (a bf16
+    cache exactly), ``slot_pos`` stays int32."""
+    def stack(*layers):
+        return np.stack([_host_copy(t if t.dtype == torch.int32 else t.to(torch.float32))
+                         for t in layers])
+
+    return tuple(tree_map(stack, *specs) for specs in zip(*state))
+
+
+def lm_decode_state_from_numpy(tree, *, dtype=torch.bfloat16, device="cuda") -> list:
+    """The JAX package's decode state of an ``LM`` (a tuple of per-spec
+    dicts stacked on ``n_superblocks``, as ``init_decode_state`` makes it)
+    → the port's ``[superblock][spec]`` dicts on ``device``: the KV caches
+    (``k``, ``v``) in ``dtype``, ``slot_pos`` int32, the recurrent states
+    float32."""
+    dev = lm_lib._resolve_device(device)
+
+    def load(node, i, key=""):
+        if isinstance(node, dict):
+            return {k: load(v, i, k) for k, v in node.items()}
+        arr = np.asarray(node)[i]
+        if arr.dtype == np.int32:
+            return torch.from_numpy(np.array(arr, copy=True)).to(dev)
+        t = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True)).to(dev)
+        return t.to(dtype) if key in ("k", "v") else t
+
+    n = int(np.shape(leaves(tree)[0])[0])
+    return [[load(spec_tree, i) for spec_tree in tree] for i in range(n)]

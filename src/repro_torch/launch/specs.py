@@ -23,7 +23,7 @@ def build_model(
     is not ported and raises."""
     if cfg.family == "audio":
         raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (audio) family comes with the rest of the model "
-            "zoo (ROADMAP queue 1 item 10)")
+            f"{cfg.name}: the encoder-decoder (audio) family comes with cross-attention "
+            "(ROADMAP queue 1 item 10, slice 18)")
     return lm_lib.LM(cfg, remat=remat, attn_impl=attn_impl, attn_block_k=attn_block_k,
                      ce_block=ce_block, device=device)

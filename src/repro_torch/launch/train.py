@@ -75,8 +75,8 @@ def main(argv=None) -> dict:
     cfg = configs.get(args.arch) if args.full else configs.get_smoke(args.arch)
     model = specs_lib.build_model(cfg, remat=not args.full, device=args.device)
     if cfg.vision_tokens:
-        raise NotImplementedError(f"{cfg.name}: the vision family comes with the rest of the "
-                                  "model zoo (ROADMAP queue 1 item 10)")
+        raise NotImplementedError(f"{cfg.name}: the vision family comes with cross-attention "
+                                  "(ROADMAP queue 1 item 10, slice 18)")
 
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M remat={model.remat} "
           f"on {model.device}")

@@ -16,15 +16,18 @@ non-reentrant checkpoint, as the reference runs it under
 scores and probabilities instead of saving them all (about 0.5 GB a
 block at 2 × 4096 tokens of gemma-2b).
 
-Decode steps attend one token to a ``full`` KV cache by einsum. The
-reference's decode einsums accumulate a bf16 cache in float32
-(``preferred_element_type``); torch has no such product, so the port casts
-the cache to float32 at each step (the products of bf16 values are exact
-in float32, so only the summation order differs), which costs one float32
-copy of the layer's cache per step. The cache is updated in place, where
-the reference returns a new one. The ``ring`` cache of sliding-window
-layers and cross-attention come with the rest of the model zoo (ROADMAP
-queue 1 item 10).
+Decode steps attend one token to a KV cache by einsum: a ``full`` cache
+(one slot per position up to its length) or a ``ring`` cache of width W
+for sliding-window layers (position ``pos`` in slot ``pos % W``, each
+slot's position in ``slot_pos``, -1 for an empty slot), which holds a
+500k-token decode in O(W). The reference's decode einsums accumulate a
+bf16 cache in float32 (``preferred_element_type``); torch has no such
+product, so the port casts the cache to float32 at each step (the
+products of bf16 values are exact in float32, so only the summation order
+differs), which costs one float32 copy of the layer's cache per step. The
+cache is updated in place, where the reference returns a new one.
+Cross-attention comes with the encoder-decoder and vision families
+(ROADMAP queue 1 item 10, slice 18).
 """
 
 from __future__ import annotations
@@ -208,20 +211,23 @@ def forward(
 # --------------------------------------------------------------------- #
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
-    kind: str      # "full" (the "ring" cache is not ported yet)
-    length: int    # S_max
+    kind: str      # "full" | "ring"
+    length: int    # S_max (full) or window W (ring)
 
 
 def init_cache(
     batch: int, cfg: ModelConfig, spec: CacheSpec, dtype=torch.bfloat16, *, device
 ) -> Params:
-    if spec.kind != "full":
-        raise NotImplementedError(
-            f"cache kind {spec.kind!r}: the sliding-window ring cache comes with the rest of "
-            "the model zoo (ROADMAP queue 1 item 10)")
+    """Zeros of ``[B, Hkv, length, D]`` for k and v; a ``ring`` cache also
+    has int32 ``slot_pos [length]``, -1 (empty) in every slot."""
+    if spec.kind not in ("full", "ring"):
+        raise ValueError(f"cache kind must be 'full' or 'ring', got {spec.kind!r}")
     shape = (batch, cfg.n_kv_heads, spec.length, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if spec.kind == "ring":
+        cache["slot_pos"] = torch.full((spec.length,), -1, dtype=torch.int32, device=device)
+    return cache
 
 
 def decode_step(
@@ -236,7 +242,10 @@ def decode_step(
     use_rope: bool = True,
 ) -> tuple[torch.Tensor, Params]:
     """One-token decode. x [B,1,d_model]; pos the index being written.
-    Writes this token's k and v into ``cache`` in place and returns it."""
+    Writes this token's k and v into ``cache`` in place (a ring cache at
+    slot ``pos % W``, with ``slot_pos``) and returns it. A ring cache's key
+    is valid when its slot is filled, its position at most ``pos`` and,
+    with a window, less than ``window`` behind."""
     b = x.shape[0]
     q = _split_heads(common.dense(x, params["wq"]), cfg.n_heads)
     k_new = _split_heads(common.dense(x, params["wk"]), cfg.n_kv_heads)
@@ -247,12 +256,21 @@ def decode_step(
         k_new = common.apply_rope(k_new, posv, cfg.rope_theta)
 
     k_cache, v_cache = cache["k"], cache["v"]
-    slot = min(max(pos, 0), spec.length - 1)  # dynamic_update_slice clamps its start
+    if spec.kind == "ring":
+        slot = pos % spec.length
+    else:
+        slot = min(max(pos, 0), spec.length - 1)  # dynamic_update_slice clamps its start
     k_cache[:, :, slot] = k_new[:, :, 0].to(k_cache.dtype)
     v_cache[:, :, slot] = v_new[:, :, 0].to(v_cache.dtype)
 
-    kpos = torch.arange(spec.length, device=x.device)[None, :]
-    valid = _window_mask(kpos <= pos, pos, kpos, window)
+    if spec.kind == "ring":
+        slot_pos = cache["slot_pos"]
+        slot_pos[slot] = pos
+        kpos = slot_pos[None, :]
+        valid = _window_mask((kpos >= 0) & (kpos <= pos), pos, kpos, window)
+    else:
+        kpos = torch.arange(spec.length, device=x.device)[None, :]
+        valid = _window_mask(kpos <= pos, pos, kpos, window)
 
     hkv, group = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(b, hkv, group, 1, cfg.head_dim).to(k_cache.dtype)

@@ -4,9 +4,9 @@ Counterpart of ``repro/models/common.py``. The DLRM uses :class:`Dense`
 (``dense_init`` / ``dense`` as a module). The language models use the rest
 as the reference does: parameters are plain dicts of float32 tensors,
 cast to the compute dtype at each use, and the layers are functions over
-them. The configs are the reference's plain dataclasses; ``MoEConfig``
-and ``SSMConfig`` come along because ``configs/base.shrink`` builds them,
-though no MoE or SSM layer is ported yet.
+them. The configs are the reference's plain dataclasses, ``MoEConfig``
+and ``SSMConfig`` included (``models/mlp.py``'s MoE layer and
+``models/ssm.py`` read them).
 """
 
 from __future__ import annotations

@@ -1,24 +1,33 @@
-"""Decoder-only language model: superblocks of attention + MLP layers.
+"""Decoder-only language model: superblocks of attention, SSM and MLP layers.
 
-Counterpart of ``repro/models/lm.py::LM`` for ``kind="attn"`` layers with
-causal or bidirectional attention and dense MLPs. Other layer kinds (MoE,
-SSM, hybrid, cross-attention) and ``EncDec`` come with the rest of the
-model zoo and raise ``NotImplementedError``.
+Counterpart of ``repro/models/lm.py::LM`` for every decoder-only layer
+kind: ``attn`` (causal or bidirectional, optionally sliding-window),
+``hymba`` (attention and Mamba heads in parallel on the same input,
+``x + 0.5·(rms(a) + rms(m))``), ``mamba``, ``mlstm`` and ``slstm``, each
+with a dense or an MoE MLP (``LayerSpec.moe``). Cross-attention and
+``EncDec`` come with the encoder-decoder and vision families (ROADMAP
+queue 1 item 10, slice 18) and raise ``NotImplementedError``.
 
 The parameters are the reference's tree, with the stacked per-spec arrays
 unstacked into a list: ``{"embed" [V, d], "blocks": [superblock][spec]
 dicts, "final_norm", "lm_head" (untied only)}``, float32 at rest, cast to
 the compute dtype at each use. The reference runs the superblocks as one
 ``lax.scan``; here they are a Python loop, with the same float32 residual
-carry across superblocks.
+carry across superblocks and the MoE auxiliary loss summed over layers.
 
 Entry points:
     init(generator)                          → params
+    trunk(params, tokens)                    → (final-norm hidden, MoE aux)
     hidden(params, tokens)                   → final-norm hidden states
     forward(params, tokens)                  → logits
-    loss(params, tokens)                     → next-token CE (chunked_ce)
-    init_decode_state(batch, cache_len)      → per-layer KV caches
+    loss(params, tokens)                     → next-token CE + aux_weight · aux
+    init_decode_state(batch, cache_len)      → per-layer caches and states
     decode_step(params, token, state, pos)   → (logits, state)
+
+A layer's decode state is the reference's: ``{"kv": {"k", "v"}}`` (a
+``ring`` cache of ``min(window, cache_len)`` slots with ``slot_pos`` for a
+sliding-window layer), ``"mamba"`` [B, di, N], ``"mlstm": {"s", "n"}``,
+``"slstm": {"c", "n", "h", "m"}``, the recurrent states float32.
 
 Training: ``loss`` differentiates once the parameters require gradients
 (``train/steps.py::trainable``; ``init`` makes plain tensors, which
@@ -33,7 +42,10 @@ so the full [B, S, V] logits are never held.
 ``"chunked"`` (the reference's default, and the one that trains),
 ``"einsum"``, or ``"flash"``, the hand-written kernel
 (``attention.forward(use_flash_kernel=True)``), which is forward only: a
-backward through it raises.
+backward through it raises. The kernel has no sliding window, so on the
+flash route the layers with ``window > 0`` take the chunked route; the
+reference's flash path attends to the whole sequence there (a fault of
+the reference, ROADMAP queue 3), which the port does not copy.
 """
 
 from __future__ import annotations
@@ -43,18 +55,20 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, ssm
 from repro_torch.models.common import LayerSpec, ModelConfig, Params
 
 ATTN_IMPLS = ("chunked", "einsum", "flash")
+KINDS = ("attn", "hymba", "mamba", "mlstm", "slstm")
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.kind != "attn" or spec.attn not in ("causal", "bidir") or spec.moe:
+    if spec.kind not in KINDS:
+        raise ValueError(f"layer {spec}: kind must be one of {KINDS}")
+    if spec.kind == "attn" and spec.attn not in ("causal", "bidir"):
         raise NotImplementedError(
-            f"layer {spec}: the port has dense attention layers (causal or bidir) with dense "
-            "MLPs; MoE, SSM, hybrid and cross-attention layers come with the rest of the model "
-            "zoo (ROADMAP queue 1 item 10)")
+            f"layer {spec}: cross-attention comes with the encoder-decoder and vision "
+            "families (ROADMAP queue 1 item 10, slice 18)")
 
 
 def _resolve_device(device) -> torch.device:
@@ -75,28 +89,70 @@ def _resolve_device(device) -> torch.device:
 # --------------------------------------------------------------------- #
 def _block_init(generator, spec: LayerSpec, cfg: ModelConfig, *, device) -> Params:
     _check_spec(spec)
-    p: Params = {"ln1": common.norm_init(cfg.d_model, cfg.norm, device=device),
-                 "attn": attention.init(generator, cfg, device=device)}
+    p: Params = {"ln1": common.norm_init(cfg.d_model, cfg.norm, device=device)}
+    if spec.kind in ("attn", "hymba"):
+        p["attn"] = attention.init(generator, cfg, device=device)
+    if spec.kind in ("hymba", "mamba"):
+        p["mamba"] = ssm.mamba_init(generator, cfg, device=device)
+    if spec.kind == "hymba":
+        p["ln_a"] = common.norm_init(cfg.d_model, "rmsnorm", device=device)
+        p["ln_m"] = common.norm_init(cfg.d_model, "rmsnorm", device=device)
+    if spec.kind == "mlstm":
+        p["mlstm"] = ssm.mlstm_init(generator, cfg, device=device)
+    if spec.kind == "slstm":
+        p["slstm"] = ssm.slstm_init(generator, cfg, device=device)
     if spec.mlp:
         p["ln2"] = common.norm_init(cfg.d_model, cfg.norm, device=device)
-        p["mlp"] = mlp.init(generator, cfg, spec.mlp, device=device)
+        p["mlp"] = (mlp.moe_init(generator, cfg, spec.mlp, device=device) if spec.moe
+                    else mlp.init(generator, cfg, spec.mlp, device=device))
     return p
+
+
+def _hymba_mix(x, a, m, p):
+    """hymba's update: the attention and Mamba heads, each rms-normalised."""
+    return x + 0.5 * (common.norm(a, p["ln_a"], "rmsnorm") + common.norm(m, p["ln_m"], "rmsnorm"))
+
+
+def _block_mlp(x: torch.Tensor, p: Params, spec: LayerSpec, cfg: ModelConfig):
+    """The block's MLP half → (x, the MoE auxiliary loss; the Python float
+    0.0 for a dense MLP or none, so that dense layers launch nothing for
+    it)."""
+    aux = 0.0
+    if spec.mlp:
+        h2 = common.norm(x, p["ln2"], cfg.norm)
+        if spec.moe:
+            y, aux = mlp.moe_forward(h2, p["mlp"], cfg, spec.mlp)
+        else:
+            y = mlp.forward(h2, p["mlp"], spec.mlp)
+        x = x + y
+    return x, aux
 
 
 def _block_forward(
     x: torch.Tensor, p: Params, spec: LayerSpec, cfg: ModelConfig, *, impl: str,
     block_k: int = 1024,
-) -> torch.Tensor:
-    """Full-sequence block."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence block. Returns (x, MoE aux: a float32 tensor for an MoE
+    layer, else 0.0)."""
     _check_spec(spec)
     h = common.norm(x, p["ln1"], cfg.norm)
-    flash = impl == "flash"
-    x = x + attention.forward(
-        h, p["attn"], cfg, causal=spec.attn == "causal", window=spec.window,
-        impl="chunked" if flash else impl, use_flash_kernel=flash, block_k=block_k)
-    if spec.mlp:
-        x = x + mlp.forward(common.norm(x, p["ln2"], cfg.norm), p["mlp"], spec.mlp)
-    return x
+    flash = impl == "flash" and spec.window == 0
+    route = "chunked" if impl == "flash" else impl
+    if spec.kind in ("attn", "hymba"):
+        a = attention.forward(
+            h, p["attn"], cfg, causal=spec.kind == "hymba" or spec.attn == "causal",
+            window=spec.window, impl=route, use_flash_kernel=flash, block_k=block_k)
+        if spec.kind == "attn":
+            x = x + a
+        else:
+            m, _ = ssm.mamba_forward(h, p["mamba"], cfg)
+            x = _hymba_mix(x, a, m, p)
+    else:
+        fwd = {"mamba": ssm.mamba_forward, "mlstm": ssm.mlstm_forward,
+               "slstm": ssm.slstm_forward}[spec.kind]
+        y, _ = fwd(h, p[spec.kind], cfg)
+        x = x + y
+    return _block_mlp(x, p, spec, cfg)
 
 
 def _block_cache_init(
@@ -104,14 +160,26 @@ def _block_cache_init(
 ) -> Params:
     """Decode-state skeleton for one spec (zeros; decode fills it)."""
     _check_spec(spec)
-    kind = "ring" if spec.window else "full"
-    length = min(spec.window, cache_len) if spec.window else cache_len
-    return {"kv": attention.init_cache(
-        batch, cfg, attention.CacheSpec(kind, length), dtype, device=device)}
+    c: Params = {}
+    if spec.kind in ("attn", "hymba"):
+        kind = "ring" if spec.window else "full"
+        length = min(spec.window, cache_len) if spec.window else cache_len
+        c["kv"] = attention.init_cache(
+            batch, cfg, attention.CacheSpec(kind, length), dtype, device=device)
+    if spec.kind in ("hymba", "mamba"):
+        c["mamba"] = ssm.mamba_init_state(batch, cfg, device=device)
+    if spec.kind == "mlstm":
+        s, n = ssm.mlstm_init_state(batch, cfg, device=device)
+        c["mlstm"] = {"s": s, "n": n}
+    if spec.kind == "slstm":
+        cc, nn, hh, mm = ssm.slstm_init_state(batch, cfg, device=device)
+        c["slstm"] = {"c": cc, "n": nn, "h": hh, "m": mm}
+    return c
 
 
 def _cache_spec_of(cache: Params) -> attention.CacheSpec:
-    return attention.CacheSpec("full", cache["kv"]["k"].shape[2])
+    kv = cache["kv"]
+    return attention.CacheSpec("ring" if "slot_pos" in kv else "full", kv["k"].shape[2])
 
 
 def _block_decode(
@@ -120,13 +188,55 @@ def _block_decode(
     _check_spec(spec)
     new_cache = dict(cache)
     h = common.norm(x, p["ln1"], cfg.norm)
-    y, new_cache["kv"] = attention.decode_step(
-        h, cache["kv"], pos, p["attn"], cfg, spec=_cache_spec_of(cache),
-        window=spec.window)
-    x = x + y
-    if spec.mlp:
-        x = x + mlp.forward(common.norm(x, p["ln2"], cfg.norm), p["mlp"], spec.mlp)
+    if spec.kind in ("attn", "hymba"):
+        a, new_cache["kv"] = attention.decode_step(
+            h, cache["kv"], pos, p["attn"], cfg, spec=_cache_spec_of(cache),
+            window=spec.window)
+        if spec.kind == "attn":
+            x = x + a
+        else:
+            m, new_cache["mamba"] = ssm.mamba_decode(h, cache["mamba"], p["mamba"], cfg)
+            x = _hymba_mix(x, a, m, p)
+    elif spec.kind == "mamba":
+        y, new_cache["mamba"] = ssm.mamba_decode(h, cache["mamba"], p["mamba"], cfg)
+        x = x + y
+    elif spec.kind == "mlstm":
+        st = cache["mlstm"]
+        y, (s, n) = ssm.mlstm_decode(h, (st["s"], st["n"]), p["mlstm"], cfg)
+        new_cache["mlstm"] = {"s": s, "n": n}
+        x = x + y
+    else:
+        st = cache["slstm"]
+        y, (cc, nn, hh, mm) = ssm.slstm_decode(h, (st["c"], st["n"], st["h"], st["m"]),
+                                               p["slstm"], cfg)
+        new_cache["slstm"] = {"c": cc, "n": nn, "h": hh, "m": mm}
+        x = x + y
+    x, _ = _block_mlp(x, p, spec, cfg)
     return x, new_cache
+
+
+def _recurrent_states(cache: Params):
+    """A layer's recurrent state tensors, each with its initial value
+    (``ssm.*_init_state``)."""
+    if "mamba" in cache:
+        yield cache["mamba"], 0.0
+    for t in cache.get("mlstm", {}).values():
+        yield t, 0.0
+    for name, t in cache.get("slstm", {}).items():
+        yield t, ssm.SLSTM_M_INIT if name == "m" else 0.0
+
+
+def reset_decode_rows(state: list, rows) -> None:
+    """Start batch rows ``rows`` of a decode state (``LM.init_decode_state``)
+    anew, in place, for a new request: every recurrent state's rows back
+    to their initial value. The KV caches keep their rows: the decode's
+    position mask (``kpos <= pos``, a ring's ``slot_pos``) hides what an
+    earlier request wrote until the new one has overwritten it."""
+    for sb in state:
+        for cache in sb:
+            for t, init in _recurrent_states(cache):
+                for i in rows:
+                    t[i].fill_(init)
 
 
 # --------------------------------------------------------------------- #
@@ -225,32 +335,44 @@ class LM:
         return params
 
     # ------------------------- forward ------------------------------ #
-    def _superblock_body(self, x32: torch.Tensor, sb_params, compute_dtype) -> torch.Tensor:
+    def _superblock_body(self, x32: torch.Tensor, aux, sb_params,
+                         compute_dtype) -> tuple[torch.Tensor, torch.Tensor | float]:
         """One superblock with a float32 residual carry: the stream rounds
         to the compute dtype at each superblock's entry, and the block's
-        delta (exact in float32) is added to the float32 carry."""
+        delta (exact in float32) is added to the float32 carry. ``aux``
+        gains each MoE layer's auxiliary loss."""
         xb = x32.to(compute_dtype)
         xo = xb
         for spec, p in zip(self.cfg.superblock, sb_params):
-            xo = _block_forward(xo, p, spec, self.cfg, impl=self.attn_impl,
-                                block_k=self.attn_block_k)
+            xo, a = _block_forward(xo, p, spec, self.cfg, impl=self.attn_impl,
+                                   block_k=self.attn_block_k)
+            if spec.moe:
+                aux = aux + a
         if compute_dtype == torch.float32:
-            return xo
-        return x32 + (xo.to(torch.float32) - xb.to(torch.float32))
+            return xo, aux
+        return x32 + (xo.to(torch.float32) - xb.to(torch.float32)), aux
 
-    def hidden(self, params: Params, tokens: torch.Tensor,
-               compute_dtype=torch.bfloat16) -> torch.Tensor:
-        """Trunk only: tokens int [B,S] → final-norm hidden [B,S,d]. (The
-        reference also returns the MoE auxiliary loss, always 0 here.)"""
+    def trunk(self, params: Params, tokens: torch.Tensor,
+              compute_dtype=torch.bfloat16) -> tuple[torch.Tensor, torch.Tensor | float]:
+        """tokens int [B,S] → (final-norm hidden [B,S,d], the MoE auxiliary
+        loss summed over layers, float32; the Python float 0.0 without MoE
+        layers), as the reference's ``hidden``."""
         x32 = params["embed"][tokens.to(torch.int64)].to(compute_dtype).to(torch.float32)
+        aux = 0.0
         remat = self.remat and torch.is_grad_enabled()
         for sb in params["blocks"]:
             if remat:
-                x32 = checkpoint(self._superblock_body, x32, sb, compute_dtype,
-                                 use_reentrant=False, preserve_rng_state=False)
+                x32, aux = checkpoint(self._superblock_body, x32, aux, sb, compute_dtype,
+                                      use_reentrant=False, preserve_rng_state=False)
             else:
-                x32 = self._superblock_body(x32, sb, compute_dtype)
-        return common.norm(x32.to(compute_dtype), params["final_norm"], self.cfg.norm)
+                x32, aux = self._superblock_body(x32, aux, sb, compute_dtype)
+        return common.norm(x32.to(compute_dtype), params["final_norm"], self.cfg.norm), aux
+
+    def hidden(self, params: Params, tokens: torch.Tensor,
+               compute_dtype=torch.bfloat16) -> torch.Tensor:
+        """Trunk only: tokens int [B,S] → final-norm hidden [B,S,d], the
+        auxiliary loss dropped (prefill and serving)."""
+        return self.trunk(params, tokens, compute_dtype)[0]
 
     def head_weight(self, params: Params) -> torch.Tensor:
         """[d, V] output-projection weight (tied or dedicated)."""
@@ -269,22 +391,23 @@ class LM:
         """tokens int [B,S] → logits [B,S,V] in the compute dtype."""
         return self._head(params, self.hidden(params, tokens, compute_dtype))
 
-    def loss(self, params: Params, tokens: torch.Tensor,
-             compute_dtype=torch.bfloat16) -> torch.Tensor:
+    def loss(self, params: Params, tokens: torch.Tensor, compute_dtype=torch.bfloat16,
+             aux_weight: float = 0.01) -> torch.Tensor:
         """Next-token CE through :func:`chunked_ce` (the full logits are
-        never held): the targets are the tokens shifted left, the last
-        position weighs 0. The reference adds ``aux_weight`` times the MoE
-        auxiliary loss, which is 0 for the port's dense layers, so the
-        loss is the NLL."""
-        x = self.hidden(params, tokens, compute_dtype)
+        never held), plus ``aux_weight`` times the MoE auxiliary loss (0
+        without MoE layers): the targets are the tokens shifted left, the
+        last position weighs 0."""
+        x, aux = self.trunk(params, tokens, compute_dtype)
         weights = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
         weights[:, -1] = 0.0
         targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
-        return chunked_ce(x, self.head_weight(params), targets, weights, block=self.ce_block)
+        nll = chunked_ce(x, self.head_weight(params), targets, weights, block=self.ce_block)
+        return nll + aux_weight * aux if torch.is_tensor(aux) else nll
 
     # ------------------------- serving ------------------------------ #
     def init_decode_state(self, batch: int, cache_len: int, dtype=torch.bfloat16) -> list:
-        """[superblock][spec] caches, zeros."""
+        """[superblock][spec] caches and recurrent states: KV caches in
+        ``dtype``, zeros (ring slots -1), SSM states float32."""
         return [
             [_block_cache_init(batch, spec, self.cfg, cache_len, dtype, device=self.device)
              for spec in self.cfg.superblock]
@@ -295,7 +418,9 @@ class LM:
                     compute_dtype=torch.bfloat16) -> tuple[torch.Tensor, list]:
         """token int [B] at index ``pos`` → (logits [B, V], state). The
         stream stays in the compute dtype across layers, as in the
-        reference's decode; the caches are updated in place."""
+        reference's decode; the KV caches are updated in place, the
+        recurrent states replaced. MoE layers route the B tokens alone and
+        drop their auxiliary loss."""
         cfg = self.cfg
         x = params["embed"][token.to(torch.int64)][:, None].to(compute_dtype)
         new_state = []

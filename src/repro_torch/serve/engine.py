@@ -9,6 +9,13 @@ through ``decode_step`` at positions 0..n-1 into its slot's cache. Every
 slot shares one position, the largest over the slots, as in the reference
 (per-slot positions are a feature neither package has); requests admitted
 in one wave stay in step.
+
+A slot given to a new request starts its recurrent states (Mamba, mLSTM,
+sLSTM) anew (``lm.reset_decode_rows``); its KV caches need no reset, since
+the position mask hides what the slot's last request wrote. The reference
+engine keeps those states across requests, so a request's tokens there
+depend on the slot's last request (a fault of the reference, ROADMAP
+queue 3), which the port does not copy.
 """
 
 from __future__ import annotations
@@ -51,10 +58,14 @@ class ServeEngine:
         self._queue.append(req)
 
     def _admit(self) -> None:
+        fresh = []
         for i in range(self.slots):
             if self.slot_req[i] is None and self._queue:
                 self.slot_req[i] = self._queue.pop(0)
                 self.slot_pos[i] = 0
+                fresh.append(i)
+        if fresh:
+            lm_lib.reset_decode_rows(self.state, fresh)
 
     def step(self) -> None:
         """One engine tick: advance every occupied slot by one token."""

@@ -43,9 +43,10 @@ def trainable(params):
 def make_train_step(model, opt_cfg: opt_lib.AdamWConfig, microbatches: int = 1):
     """The LM's train step over ``{"tokens": int [B, S]}`` batches.
 
-    ``train_step(params, opt_state, batch) → metrics``: ``model.loss``,
-    its backward, global-norm clipping and AdamW on ``params`` (made
-    :func:`trainable`) and ``opt_state``, in place.
+    ``train_step(params, opt_state, batch) → metrics``: ``model.loss``
+    (with the MoE auxiliary loss, as the reference's), its backward,
+    global-norm clipping and AdamW on ``params`` (made :func:`trainable`)
+    and ``opt_state``, in place.
 
     ``microbatches > 1`` splits the batch on its leading axis into equal
     consecutive parts and accumulates the float32 gradient in the
@@ -63,7 +64,7 @@ def make_train_step(model, opt_cfg: opt_lib.AdamWConfig, microbatches: int = 1):
         if extra:
             raise NotImplementedError(
                 f"batch keys {extra}: the port's LM takes tokens only; the audio and vision "
-                "families come with the rest of the model zoo (ROADMAP queue 1 item 10)")
+                "families come with cross-attention (ROADMAP queue 1 item 10, slice 18)")
         tokens = batch["tokens"]
         if tokens.shape[0] % microbatches:
             raise ValueError(f"batch of {tokens.shape[0]} rows does not split into "
@@ -117,7 +118,8 @@ def make_tabular_train_step(loss_fn, opt_cfg: opt_lib.AdamWConfig):
 
 def make_prefill_step(model):
     """Prefill = trunk over the prompt + last-position head only (the full
-    [B,S,V] logits of ``forward`` are never needed at prefill).
+    [B,S,V] logits of ``forward`` are never needed at prefill); the MoE
+    auxiliary loss is dropped, as the reference drops it.
 
     ``prefill_step(params, batch) → logits [B, V]`` over ``batch["tokens"]``
     int [B, S], without autograd."""
@@ -132,7 +134,7 @@ def make_prefill_step(model):
 
 def make_serve_step(model):
     """``serve_step(params, state, token, pos) → (logits, state)``: one
-    decode step, without autograd."""
+    decode step, without autograd (MoE layers drop their auxiliary loss)."""
 
     @torch.no_grad()
     def serve_step(params, state, token, pos: int):

@@ -10,6 +10,7 @@ the repository root:
 chip_smoke.py runs the same comparisons at the main path's full shapes.
 """
 
+import dataclasses
 import threading
 import time
 
@@ -18,6 +19,7 @@ import pytest
 import torch
 from chip_smoke import decode_edge_chunks, device_kernels, hostile_rows
 
+from repro_torch import configs as tconfigs
 from repro_torch.configs import gemma_2b as tgemma
 from repro_torch.configs import piper_dlrm as tcfg
 from repro_torch.core import pipeline as P
@@ -45,6 +47,8 @@ from repro_torch.kernels.vocab import ops as vops
 from repro_torch.kernels.vocab import ref as vref
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.models import lm as tlm
+from repro_torch.models import mlp as tmlp
+from repro_torch.models import ssm as tssm
 from repro_torch.train import optimizer as topt
 from repro_torch.train import steps as tsteps
 from repro_torch.train import tree as ttree
@@ -1486,6 +1490,142 @@ def test_lm_smoke_loss_and_gradients_on_card_match_cpu(cuda, dtype, loss_rel, gr
     for g, w in zip(leaves(card_params), leaves(params)):
         d = (g.grad.cpu() - w.grad).norm() / w.grad.norm()
         assert float(d) <= grad_rel_l2
+
+
+# --------------------------------------------------------------------- #
+# the MoE, SSM and hybrid layers on the card, against the CPU path
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("shape_q,shape_kv", [((4, 16, 4096, 128), (4, 16, 4096, 128)),
+                                              ((4, 25, 4096, 64), (4, 5, 4096, 64))],
+                         ids=["qwen2_moe_d128", "hymba_gqa5_d64"])
+def test_flash_kernel_at_the_zoo_prefill_shapes(cuda, shape_q, shape_kv):
+    """The bf16 wgmma route at qwen2-moe's (16/16 heads, D 128) and hymba's
+    (25 query heads over 5 kv heads, D 64) prefill shapes against ref.mha,
+    causal, at the reference's 2e-2, one launch."""
+    q, k, v = _qkv(shape_q, shape_kv, torch.bfloat16, 21, cuda)
+    assert fops.route(q.dtype, q.shape[-1]) == "wgmma"
+    fops.KERNEL.launches = 0
+    got = fops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fops.KERNEL.launches == 1
+    for b in range(q.shape[0]):
+        want = fref.mha(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True)
+        torch.testing.assert_close(got[b:b + 1].float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def _zoo_params(cfg):
+    cpu = tlm.LM(cfg, device="cpu")
+    return cpu, cpu.init(torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("capacity_factor", [None, 1.0], ids=["smoke", "drops"])
+def test_moe_routing_on_card_matches_cpu(cuda, capacity_factor):
+    """qwen2-moe SMOKE's MoE layer in float32 (TF32 off) on the card: the
+    experts, positions and keep masks of 384 tokens equal the CPU's bit for
+    bit, with and without capacity drops, and the output and auxiliary loss
+    agree to 1e-5 of their scale."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tconfigs.get_smoke("qwen2-moe-a2.7b")
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    params = tmlp.moe_init(torch.Generator().manual_seed(1), cfg, "swiglu", device="cpu")
+    card = ttree.tree_map(lambda t: t.to(cuda), params)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 96, cfg.d_model)).astype(np.float32))
+    want = tmlp.moe_route(x.reshape(-1, cfg.d_model), params, cfg)
+    got = tmlp.moe_route(x.reshape(-1, cfg.d_model).to(cuda), card, cfg)
+    for key in ("experts", "positions", "keep"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert bool((~want["keep"]).any()) == (capacity_factor is not None)
+    out, aux = tmlp.moe_forward(x, params, cfg, "swiglu")
+    gout, gaux = tmlp.moe_forward(x.to(cuda), card, cfg, "swiglu")
+    assert float((gout.cpu() - out).abs().max()) <= 1e-5 * float(out.abs().max())
+    assert abs(float(gaux) - float(aux)) <= 1e-5 * float(aux)
+
+
+def test_ring_decode_on_card_matches_cpu(cuda):
+    """hymba SMOKE with its windows cut to 8, decoding 24 tokens into a
+    cache of 24 (the rings wrap twice) in float32 on the card and on the
+    CPU: the logits at every step within 1e-4 of their largest value, every
+    ring's slot_pos equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tconfigs.get_smoke("hymba-1.5b")
+    cfg = dataclasses.replace(cfg, superblock=tuple(
+        dataclasses.replace(s, window=8) if s.window else s for s in cfg.superblock))
+    cpu, params = _zoo_params(cfg)
+    card = tlm.LM(cfg, device=cuda)
+    card_params = ttree.tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 24),
+                                                                dtype=np.int32))
+    cs = cpu.init_decode_state(2, 24, dtype=torch.float32)
+    gs = card.init_decode_state(2, 24, dtype=torch.float32)
+    for pos in range(24):
+        w, cs = cpu.decode_step(params, tokens[:, pos], cs, pos, compute_dtype=torch.float32)
+        g, gs = card.decode_step(card_params, tokens[:, pos].to(cuda), gs, pos,
+                                 compute_dtype=torch.float32)
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    rings = [(a["kv"]["slot_pos"], b["kv"]["slot_pos"]) for sa, sb in zip(cs, gs)
+             for a, b in zip(sa, sb) if "slot_pos" in a["kv"]]
+    assert rings and all(torch.equal(a, b.cpu()) for a, b in rings)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_engine_serves_a_later_request_as_if_alone_on_card(cuda, arch):
+    """ServeEngine on the card (SMOKE, bf16, 2 slots): a third request, in
+    the slot of the first, gets the tokens and ends with the recurrent
+    states that it gets served alone (the slot's states start anew)."""
+    from repro_torch.serve import engine as tengine
+
+    cfg = tconfigs.get_smoke(arch)
+    model = tlm.LM(cfg, device=cuda)
+    params = model.init(torch.Generator(cuda).manual_seed(0))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, 5).tolist() for _ in range(3)]
+
+    def serve(ps):
+        eng = tengine.ServeEngine(model, params, batch_slots=2, cache_len=16)
+        reqs = [tengine.Request(prompt=p, max_new_tokens=4) for p in ps]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        return [r.generated for r in reqs], eng
+
+    got, both = serve(prompts)
+    want, alone = serve(prompts[2:])
+    assert got[2] == want[0]
+    states = [(a, b) for sa, sb in zip(both.state, alone.state) for ca, cb in zip(sa, sb)
+              for (a, _), (b, _) in zip(tlm._recurrent_states(ca), tlm._recurrent_states(cb))]
+    assert states
+    for a, b in states:
+        torch.testing.assert_close(a[0], b[0])
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm"])
+def test_ssm_forward_equals_decode_chain_on_card(cuda, kind):
+    """Each SSM block on the card, float32: its chunkwise forward over 40
+    steps (chunks of 16, a padded last one) equals its decode chain, at
+    tests/test_ssm.py's bounds (2e-4 Mamba, 5e-4 mLSTM; sLSTM's forward is
+    the decode's recurrence, 1e-5)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tconfigs.get_smoke("hymba-1.5b" if kind == "mamba" else "xlstm-350m")
+    init = {"mamba": tssm.mamba_init, "mlstm": tssm.mlstm_init, "slstm": tssm.slstm_init}[kind]
+    fwd = {"mamba": tssm.mamba_forward, "mlstm": tssm.mlstm_forward,
+           "slstm": tssm.slstm_forward}[kind]
+    dec = {"mamba": tssm.mamba_decode, "mlstm": tssm.mlstm_decode,
+           "slstm": tssm.slstm_decode}[kind]
+    state0 = {"mamba": tssm.mamba_init_state, "mlstm": tssm.mlstm_init_state,
+              "slstm": tssm.slstm_init_state}[kind]
+    params = init(torch.Generator(cuda).manual_seed(3), cfg, device=cuda)
+    x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator(cuda).manual_seed(4),
+                    device=cuda) * 0.3
+    y, _ = fwd(x, params, cfg)
+    state, ys = state0(2, cfg, device=cuda), []
+    for t in range(40):
+        y_t, state = dec(x[:, t:t + 1], state, params, cfg)
+        ys.append(y_t)
+    tol = {"mamba": 2e-4, "mlstm": 5e-4, "slstm": 1e-5}[kind]
+    torch.testing.assert_close(y, torch.cat(ys, 1), atol=tol, rtol=0)
 
 
 # --------------------------------------------------------------------- #

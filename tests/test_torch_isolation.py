@@ -58,6 +58,23 @@ req = engine.Request(prompt=[1, 2, 3], max_new_tokens=4)
 eng.submit(req)
 eng.run_until_drained()
 assert len(req.generated) == 4
+# the MoE, SSM and hybrid families at SMOKE: a prefill on the flash route
+# and decode steps each, the engine on hymba (its rings wrap)
+for arch in ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "xlstm-350m", "hymba-1.5b"):
+    zoo_model = lm.LM(configs.get_smoke(arch), attn_impl="flash", device="cpu")
+    zoo_params = zoo_model.init(torch.Generator().manual_seed(0))
+    logits = steps.make_prefill_step(zoo_model)(
+        zoo_params, {"tokens": torch.zeros((1, 48), dtype=torch.int32)})
+    zoo_state = zoo_model.init_decode_state(1, 16)
+    for pos in range(3):
+        logits, zoo_state = steps.make_serve_step(zoo_model)(
+            zoo_params, zoo_state, torch.tensor([pos], dtype=torch.int32), pos)
+    assert bool(torch.isfinite(logits).all()), arch
+eng = engine.ServeEngine(zoo_model, zoo_params, batch_slots=2, cache_len=48)
+req = engine.Request(prompt=list(range(40)), max_new_tokens=4)
+eng.submit(req)
+eng.run_until_drained()
+assert len(req.generated) == 4
 # the streaming service with its observability and chunk cache, and the
 # --piper-stream launcher
 from repro_torch import obs
@@ -139,7 +156,8 @@ def _env():
 
 def test_runs_without_jax_or_repro_in_sys_modules():
     """Piper's two loops, a DLRM train step and a checkpoint round trip, an
-    LM prefill and a served request, the streaming service with its chunk
+    LM prefill and a served request, the MoE, SSM and hybrid SMOKE models
+    (a prefill, decode steps, a served request), the streaming service with its chunk
     cache and the --piper-stream launcher, the row-wise baseline and DLRM
     training fed by the service (the loader's prefetcher, the input
     pipeline, the e2e launcher), LM training (the shapes, build_model,
