@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernels,golden,main,sharded,stream,train,serve,e2e,lm_train,
-                                    zoo,analysis]
+                                    zoo,cross,analysis]
                           [--out results.json]
     python3 chip_smoke.py --rehearse      # plumbing only, on the CPU
 
@@ -174,6 +174,32 @@ Phases, each of which passes or ends the run with a non-zero exit:
      (batch 1, 524288 positions) 4 times. Prints per model ms per prefill,
      tokens/s, busy share, launches, peak memory, ms per decode step and
      the engine's tokens/s, with the card's name and power limit.
+  9c. cross — cross-attention (bf16 compute, TF32 off). The flash kernel
+     at llama-3.2-vision-90b's self-attention (4 x 4096, 64 query heads over
+     8 kv heads, D 128, causal) and cross-attention shapes (4096 queries
+     over 1024 keys, not causal, k/v as strided head views) and at
+     whisper-small's decoder self-attention (16 x 256, 12 heads, D 64)
+     against ref.mha one query head at a time, timed beside SDPA as in the
+     serve phase. SMOKE of both models on the card (flash route) against
+     the CPU path (chunked), float32, with their stub inputs (frames,
+     patches: normal x 0.1): a forward and 8 decode steps after
+     fill_context_caches within 1e-4 of the largest logit; one train step
+     (bf16, the chunked route, 2 microbatches) within the lm_train phase's
+     SMOKE bounds. Then llama-3.2-vision-90b at full width cut to 2
+     superblocks (10 layers: 8 self-attention, 2 cross; 10.7 G parameters,
+     42.6 GB of f32 weights) and whisper-small at full width and depth. A
+     prefill (4 x 4096 tokens with 4 x 1024 patches; 16 x 256 tokens with 16
+     x 1500 frames) through attn_impl="flash" must launch flash_attention
+     exactly 10 and 12 times (whisper's 1500-frame encoder and cross layers
+     take the chunked route: 1500 is not a multiple of 128) and nothing
+     else hand-written; timed (median of 2), profiled, and held to the
+     chunked route: the first layer of each kind the kernel takes, bf16,
+     within 5e-2 relative L2, and the first prompt through the whole model
+     in float32 within 1e-3. Then 4 prompts of 32 tokens decoded in float32
+     after fill_context_caches must agree with the first one's float32
+     prefill within 1e-3, and a bf16 decode is timed. Prints per model ms
+     per prefill, tokens/s, busy share, launches, ms per decode step and
+     the peak memory, with the card's name and power limit.
   10. analysis — the port's static gate (python -m repro_torch.analysis
      --strict) in-process on the card: planlint, kernelcheck (the shape
      matrix's routes and launches on the card, the CUDA source audit, every
@@ -373,6 +399,26 @@ ZOO_SMOKE_REL = 1e-4
 ZOO_F32_REL_L2 = 1e-3
 # The zoo path's kernel: the flash prefill of every layer without a window.
 ZOO_KERNELS = ("flash_attention",)
+# The cross phase: the vision LM and the encoder-decoder at full width, one
+# at a time (random weights from a seeded generator, f32 at rest, bf16
+# compute, TF32 off; stub patches and frames, normal · 0.1, as the
+# reference's launcher makes them). llama-3.2-vision-90b is cut from 20
+# superblocks to 2 (8 self-attention and 2 cross layers): its 87.7 G
+# parameters take 351 GB in float32, one card holds 80 GB, and 2
+# superblocks take 42.6 GB. whisper-small runs at full depth. Each prefills
+# CROSS_PREFILL (batch, tokens) on the flash route, which must launch the
+# kernel CROSS_FLASH_LAUNCHES times (llama: every layer; whisper: the 12
+# decoder self-attention layers; its 1500-frame encoder and cross layers are
+# not a multiple of the kernel's 128-row tiles and take the chunked route),
+# then decodes CROSS_DECODE's prompts after fill_context_caches. A rehearsal
+# runs the SMOKE configs at CROSS_REHEARSAL's sizes.
+CROSS_MODELS = {"llama-3.2-vision-90b": "llama-vision", "whisper-small": "whisper"}
+CROSS_SUPERBLOCKS = {"llama-3.2-vision-90b": 2}
+CROSS_PREFILL = {"llama-3.2-vision-90b": (4, 4096), "whisper-small": (16, 256)}
+CROSS_FLASH_LAUNCHES = {"llama-3.2-vision-90b": 10, "whisper-small": 12}
+CROSS_DECODE = {"prompts": 4, "prompt_len": 32}
+CROSS_REHEARSAL = {"prefill": (2, 128)}
+CROSS_KERNELS = ("flash_attention",)
 # The kernels the analysis phase's audited routes launch at CRITEO: the fused
 # and bytes-in routes, the count plane, the use_kernels chain, and decode.
 ANALYSIS_KERNELS = ("decode_scan", "fused_genvocab", "fused_genvocab_slabs", "fused_transform",
@@ -2951,13 +2997,17 @@ class Smoke:
         result["kernel_checks"] = checks
         return errs
 
-    def _flash_record(self, cfg, batch: int, seq: int, errs) -> dict:
+    def _flash_record(self, cfg, batch: int, seq: int, errs, kv_seq: int | None = None,
+                      causal: bool = True, strided_kv: bool = False) -> dict:
         """Times of the kernel, its plain version and SDPA at one prefill
-        shape (random bf16 q, k, v). ``errs`` is (max abs, segment relative
-        L2) from the checks at this shape; None at 32K, where the plain
-        version runs one query head at a time with the kv head it reads (all
-        8 heads' float32 logits take 34 GB), and at the zoo phase's shapes,
-        and the errors are measured here.
+        shape (random bf16 q, k, v; ``kv_seq`` keys, ``seq`` by default).
+        ``errs`` is (max abs, segment relative L2) from the checks at this
+        shape; None at 32K, where the plain version runs one query head at
+        a time with the kv head it reads (all 8 heads' float32 logits take
+        34 GB), and at the zoo and cross phases' shapes, and the errors are
+        measured here. With ``strided_kv`` k and v are [B, S, Hkv, D]
+        viewed as [B, Hkv, S, D], as ``attention.context_kv`` hands a cross
+        layer's over.
 
         The kernel, SDPA and the plain version are timed alike, by CUDA
         events around calls back to back, the kernel and SDPA in the order
@@ -2971,10 +3021,15 @@ class Smoke:
         from repro_torch.kernels.flash_attention import ops as faops, ref as faref
 
         hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        skv = seq if kv_seq is None else kv_seq
         gen = torch.Generator(dev).manual_seed(12)
         q = torch.randn((batch, hq, seq, d), generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn((batch, hkv, seq, d), generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn((batch, hkv, seq, d), generator=gen, device=dev).to(torch.bfloat16)
+        if strided_kv:
+            k, v = (torch.randn((batch, skv, hkv, d), generator=gen, device=dev)
+                    .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+        else:
+            k, v = (torch.randn((batch, hkv, skv, d), generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
         per_head = errs is None
         err, rel = errs if errs else (0.0, 0.0)
         group = hq // hkv
@@ -2985,14 +3040,14 @@ class Smoke:
 
         def plain():
             if per_head:
-                return [faref.mha(*head(h)) for h in range(hq)]
-            return faref.mha(q, k, v)
+                return [faref.mha(*head(h), causal=causal) for h in range(hq)]
+            return faref.mha(q, k, v, causal=causal)
 
         if per_head:
-            got = faops.flash_attention(q, k, v)
+            got = faops.flash_attention(q, k, v, causal=causal)
             rel_tol = FLASH_REL_L2[str(torch.bfloat16)]
             for h in range(hq):
-                want = faref.mha(*head(h))
+                want = faref.mha(*head(h), causal=causal)
                 expect(bool(torch.allclose(got[:, h:h + 1].float(), want.float(), atol=2e-2,
                                            rtol=2e-2)),
                        f"flash_attention at [{batch}, {hq}, {seq}, {d}] head {h}: beyond 2e-2")
@@ -3004,10 +3059,10 @@ class Smoke:
         sdpa = torch.nn.functional.scaled_dot_product_attention
 
         def kernel():
-            return faops.flash_attention(q, k, v)
+            return faops.flash_attention(q, k, v, causal=causal)
 
         def library():
-            return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
 
         reps = 20 if seq <= 4096 else 5
         runs = {"ms": [], "library_ms": []}
@@ -3016,8 +3071,8 @@ class Smoke:
             runs[key].append(self.event_ms(fn, reps))
         ms, lib_ms = (None if None in r else sum(r) / len(r) for r in runs.values())
         plain_ms = self.event_ms(plain, reps=2 if per_head else 5)
-        ops = 4 * batch * hq * seq * seq * d // 2  # causal: half the products
-        io = (2 * batch * hq + 2 * batch * hkv) * seq * d * 2
+        ops = 4 * batch * hq * seq * skv * d // (2 if causal else 1)  # causal: half
+        io = (2 * batch * hq * seq + 2 * batch * hkv * skv) * d * 2
         b_ms, b_by = bound(io, ops, TENSOR_CORE_BF16_OPS_PER_S)
         backends, library_backend = self._sdpa_backends(library, reps, seq)
         rec = {
@@ -3027,10 +3082,12 @@ class Smoke:
             "ms_from": {"ms": "cuda_events", "plain_ms": "cuda_events",
                         "library_ms": "cuda_events"},
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+            "library_call": f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)",
             "library_backend": library_backend, "sdpa_backends": backends,
             "plain": "ref.mha, one query head at a time" if per_head else "ref.mha",
-            "shape": f"q [{batch}, {hq}, {seq}, {d}], k/v [{batch}, {hkv}, {seq}, {d}] bf16",
+            "shape": f"q [{batch}, {hq}, {seq}, {d}], k/v [{batch}, {hkv}, {skv}, {d}] bf16"
+                     + (" (strided head views)" if strided_kv else ""),
+            "causal": causal,
         }
         if ms:
             rec.update(tflops=ops / ms / 1e9, bound_share=b_ms / ms, vs_library=ms / lib_ms,
@@ -3475,18 +3532,23 @@ class Smoke:
         finally:
             emit(result)
 
-    def _zoo(self, data, result: dict) -> tuple[dict, dict]:
-        torch, dev = self.torch, self.dev
-        from repro_torch import configs
+    def _piper_tokens(self, data):
+        """The prompts' source: Piper's sparse ordinals of the 5K utf8 run on
+        the card, on the host."""
         from repro_torch.core import pipeline as P
+
+        pipe = P.PiperPipeline(P.PipelineConfig(device=str(self.dev)))
+        outs = list(pipe.run_stream(lambda: iter(data["utf8_chunks"])))
+        return self.torch.cat([o.sparse[o.valid] for o in outs]).cpu().numpy()
+
+    def _zoo(self, data, result: dict) -> tuple[dict, dict]:
+        torch = self.torch
+        from repro_torch import configs
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         t_phase = time.perf_counter()
-        pipe = P.PiperPipeline(P.PipelineConfig(device=str(dev)))
-        outs = list(pipe.run_stream(lambda: iter(data["utf8_chunks"])))
-        sparse = torch.cat([o.sparse[o.valid] for o in outs]).cpu().numpy()
-        del outs
+        sparse = self._piper_tokens(data)
 
         batch, seq = ZOO_REHEARSAL["prefill"] if self.rehearse else ZOO_PREFILL
         records = {}
@@ -3517,42 +3579,75 @@ class Smoke:
             self.torch.cuda.empty_cache()
             self.torch.cuda.reset_peak_memory_stats()
 
-    def _zoo_smoke(self, cfg, sparse) -> dict:
+    def _stub_inputs(self, cfg, batch: int, device, seed: int = 1) -> dict:
+        """The reference launcher's stub inputs of ``cfg``'s family, normal ·
+        0.1 float32 from a seeded generator on ``device``: ``frames`` [B,
+        encoder_frames, d] for the audio family, ``vision`` [B, vision_tokens,
+        d] for a vision LM, none otherwise."""
+        torch = self.torch
+        gen = torch.Generator(device).manual_seed(seed)
+        key, length = (("frames", cfg.encoder_frames) if cfg.family == "audio" else
+                       ("vision", cfg.vision_tokens) if cfg.vision_tokens else (None, 0))
+        if key is None:
+            return {}
+        return {key: torch.randn((batch, length, cfg.d_model), generator=gen,
+                                 device=device).mul_(0.1)}
+
+    def _decoder_context(self, model, params, extra: dict, dtype):
+        """``(decoder, context)``: the LM that decodes, and what its cross
+        layers attend to: an EncDec's encoding of ``extra["frames"]``, an
+        LM's ``extra["vision"]``, or None."""
+        if "frames" in extra:
+            return model.decoder, model.encode(params, extra["frames"], dtype)
+        return model, extra.get("vision")
+
+    def _zoo_smoke(self, cfg, sparse, name: str = "zoo") -> dict:
         """``cfg`` (a SMOKE config) on the card on the flash route and on the
         CPU on the chunked route from the same weights, float32 compute: the
         logits of a forward pass and of ZOO_SMOKE_RUN's decode steps within
-        ZOO_SMOKE_REL of their largest value."""
+        ZOO_SMOKE_REL of their largest value. An audio or vision config gets
+        its stub inputs: the forward reads them, and the decode steps run
+        after ``fill_context_caches``."""
         torch, dev = self.torch, self.dev
         from repro_torch.data import loader
-        from repro_torch.models import lm
+        from repro_torch.launch import specs
         from repro_torch.train.tree import tree_map
 
         run = ZOO_SMOKE_RUN
-        cpu = lm.LM(cfg, device="cpu")
+        cpu = specs.build_model(cfg, device="cpu")
         params = cpu.init(torch.Generator().manual_seed(0))
-        card = lm.LM(cfg, attn_impl="flash", device=dev)
+        card = specs.build_model(cfg, attn_impl="flash", device=dev)
         card_params = tree_map(lambda t: t.to(dev), params)
         tokens = torch.from_numpy(
             loader.PiperTokenBatches(sparse, cfg.vocab_size, run["batch"], run["seq"])(2)["tokens"])
+        extra = self._stub_inputs(cfg, run["batch"], "cpu")
         f32 = torch.float32
-        want = cpu.forward(params, tokens, compute_dtype=f32)
-        got = card.forward(card_params, tokens.to(dev), compute_dtype=f32).cpu()
+        with torch.no_grad():
+            cpu_dec, cpu_ctx = self._decoder_context(cpu, params, extra, f32)
+            card_dec, card_ctx = self._decoder_context(
+                card, card_params, {k: t.to(dev) for k, t in extra.items()}, f32)
+            want = cpu_dec.forward(params, tokens, f32, context=cpu_ctx)
+            got = card_dec.forward(card_params, tokens.to(dev), f32, context=card_ctx).cpu()
         scale = float(want.abs().max())
-        out = {"forward_max_abs": float((got - want).abs().max()), "scale": scale}
+        out = {"forward_max_abs": float((got - want).abs().max()), "scale": scale,
+               "stub_inputs": sorted(extra)}
         expect(out["forward_max_abs"] <= ZOO_SMOKE_REL * scale,
-               f"zoo SMOKE {cfg.name}: the card's forward differs from the CPU's by "
+               f"{name} SMOKE {cfg.name}: the card's forward differs from the CPU's by "
                f"{out['forward_max_abs']} > {ZOO_SMOKE_REL} of {scale}")
-        cs = cpu.init_decode_state(run["batch"], run["decode_steps"], dtype=f32)
-        gs = card.init_decode_state(run["batch"], run["decode_steps"], dtype=f32)
+        cs = cpu_dec.init_decode_state(run["batch"], run["decode_steps"], dtype=f32)
+        gs = card_dec.init_decode_state(run["batch"], run["decode_steps"], dtype=f32)
+        if cpu_ctx is not None:
+            cpu_dec.fill_context_caches(params, cs, cpu_ctx)
+            card_dec.fill_context_caches(card_params, gs, card_ctx)
         worst = 0.0
         for pos in range(run["decode_steps"]):
-            w, cs = cpu.decode_step(params, tokens[:, pos], cs, pos, compute_dtype=f32)
-            g, gs = card.decode_step(card_params, tokens[:, pos].to(dev), gs, pos,
-                                     compute_dtype=f32)
+            w, cs = cpu_dec.decode_step(params, tokens[:, pos], cs, pos, compute_dtype=f32)
+            g, gs = card_dec.decode_step(card_params, tokens[:, pos].to(dev), gs, pos,
+                                         compute_dtype=f32)
             worst = max(worst, float((g.cpu() - w).abs().max()) / float(w.abs().max()))
         out["decode_max_rel"] = worst
-        expect(worst <= ZOO_SMOKE_REL, f"zoo SMOKE {cfg.name}: the card's decode steps differ "
-               f"from the CPU's by {worst} > {ZOO_SMOKE_REL} of the largest logit")
+        expect(worst <= ZOO_SMOKE_REL, f"{name} SMOKE {cfg.name}: the card's decode steps "
+               f"differ from the CPU's by {worst} > {ZOO_SMOKE_REL} of the largest logit")
         return out
 
     def _routing_spy(self, replay=None):
@@ -3805,24 +3900,35 @@ class Smoke:
                        device_busy_share=busy / rec["ms_per_step"])
         return rec
 
-    def _zoo_decode_f32(self, model, params, tokens, cache_len: int) -> dict:
+    def _zoo_decode_f32(self, model, params, tokens, cache_len: int,
+                        extra: dict | None = None) -> dict:
         """``tokens [B, n]`` decoded together in float32 (caches and
         compute) into a cache of ``cache_len``: the relative L2 of row 0's
         last logits from the float32 prefill of row 0 alone; for MoE, the
         routing choices either side dropped and the share of row 0's
-        (token, layer) expert sets the two agree on."""
+        (token, layer) expert sets the two agree on. ``extra`` holds the
+        batch's stub inputs (``frames``, ``vision``, [B, ...]): the decode
+        runs after ``fill_context_caches`` with their context, the prefill
+        of row 0 reads row 0's."""
         torch = self.torch
         from repro_torch.train import steps
 
         f32, (b, n) = torch.float32, tokens.shape
-        state = model.init_decode_state(b, cache_len, dtype=f32)
+        extra = extra or {}
+        with torch.no_grad():
+            decoder, context = self._decoder_context(model, params, extra, f32)
+            state = decoder.init_decode_state(b, cache_len, dtype=f32)
+            if context is not None:
+                decoder.fill_context_caches(params, state, context)
         with torch.no_grad(), self._routing_spy() as dec:
             for pos in range(n):
-                logits, state = model.decode_step(params, tokens[:, pos], state, pos,
-                                                  compute_dtype=f32)
+                logits, state = decoder.decode_step(params, tokens[:, pos], state, pos,
+                                                    compute_dtype=f32)
+        del state, context
         with self._routing_spy() as pre:
-            want = steps.make_prefill_step(model)(params, {"tokens": tokens[:1]},
-                                                  compute_dtype=f32)
+            want = steps.make_prefill_step(model)(
+                params, {"tokens": tokens[:1], **{k: t[:1] for k, t in extra.items()}},
+                compute_dtype=f32)
         out = {"vs_prefill_rel_l2": self._rel_l2(logits[:1], want),
                "dropped": sum(int((~r["keep"]).sum()) for r in dec + pre)}
         if pre:
@@ -3911,6 +4017,287 @@ class Smoke:
         return {"seq_len": shape.seq_len, "batch": shape.global_batch, "state_bytes": n_bytes,
                 "steps": ZOO_LONG_STEPS, "step_seconds": times,
                 "ms_per_step": statistics.median(times) * 1e3}
+
+    # -- phase 9c ------------------------------------------------------- #
+    def cross(self, data) -> tuple[dict, dict]:
+        """Cross-attention: the flash kernel's records at llama-3.2-vision's
+        self and cross shapes and whisper's decoder shape, SMOKE of both
+        models on the card against the CPU (forward, decode after
+        fill_context_caches, one train step), then llama-3.2-vision-90b at
+        full width (2 superblocks) and whisper-small at full width and
+        depth. Returns (kernel records by entry name, kernel → launches per
+        record tag). Prints what it measured, also when a check fails."""
+        result = {"phase": "cross", "nvidia_smi": self.smi}
+        try:
+            return self._cross(data, result)
+        finally:
+            emit(result)
+
+    def _cross_cfg(self, arch: str):
+        from repro_torch import configs
+
+        if self.rehearse:
+            return configs.get_smoke(arch)
+        cfg = configs.get(arch)
+        if arch in CROSS_SUPERBLOCKS:
+            cfg = dataclasses.replace(cfg, n_superblocks=CROSS_SUPERBLOCKS[arch])
+        return cfg
+
+    def _cross_tags(self, arch: str, batch: int, seq: int) -> dict:
+        """Record tag by kind of attention layer the kernel takes here."""
+        name = CROSS_MODELS[arch]
+        tags = {"self": f"{name}-self-b{batch}s{seq}"}
+        if arch != "whisper-small":
+            tags["cross"] = f"{name}-cross-b{batch}s{seq}"
+        return tags
+
+    def _cross(self, data, result: dict) -> tuple[dict, dict]:
+        torch = self.torch
+        from repro_torch import configs
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t_phase = time.perf_counter()
+        self._free()
+        sparse = self._piper_tokens(data)
+        records = {}
+        for arch in CROSS_MODELS:
+            cfg = self._cross_cfg(arch)
+            batch, seq = CROSS_REHEARSAL["prefill"] if self.rehearse else CROSS_PREFILL[arch]
+            tags = self._cross_tags(arch, batch, seq)
+            records[f"flash_attention@{tags['self']}"] = self._flash_record(cfg, batch, seq, None)
+            if "cross" in tags:
+                records[f"flash_attention@{tags['cross']}"] = self._flash_record(
+                    cfg, batch, seq, None, kv_seq=cfg.vision_tokens, causal=False,
+                    strided_kv=True)
+            self._free()
+        result["records_s"] = time.perf_counter() - t_phase
+        result["smoke"] = {arch: self._zoo_smoke(configs.get_smoke(arch), sparse, "cross")
+                           for arch in CROSS_MODELS}
+        result["smoke_train_step"] = {arch: self._cross_train_step(configs.get_smoke(arch),
+                                                                   sparse)
+                                      for arch in CROSS_MODELS}
+        models, launches = {}, {}
+        for arch in CROSS_MODELS:
+            cfg = self._cross_cfg(arch)
+            batch, seq = CROSS_REHEARSAL["prefill"] if self.rehearse else CROSS_PREFILL[arch]
+            models[arch] = {"config": cfg.name, "layers": cfg.n_layers,
+                            "encoder_layers": len(cfg.encoder_superblock)
+                            * cfg.n_encoder_superblocks,
+                            "params": cfg.param_count(), "nvidia_smi": self.smi}
+            if arch in CROSS_SUPERBLOCKS and not self.rehearse:
+                full = configs.get(arch)
+                models[arch]["cut"] = (
+                    f"depth {full.n_layers} -> {cfg.n_layers} layers ({full.n_superblocks} -> "
+                    f"{cfg.n_superblocks} superblocks): {full.param_count()} parameters take "
+                    f"{full.param_count() * 4} bytes in float32, more than one card holds")
+            t0 = time.perf_counter()
+            launches.update(self._cross_model(arch, cfg, sparse, batch, seq, models[arch]))
+            models[arch]["seconds"] = time.perf_counter() - t0
+            self._free()
+        result["models"] = models
+        result["seconds"] = time.perf_counter() - t_phase
+        result["kernels"] = records
+        return records, launches
+
+    def _cross_train_step(self, cfg, sparse) -> dict:
+        """One make_train_step step of ``cfg`` (a SMOKE config; LM_SMOKE_RUN's
+        batch in its microbatches, the stub inputs in the batch, bf16 compute,
+        the chunked route) on the card and on the CPU from the same weights
+        and batch, within LM_SMOKE_TOL."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.data import loader
+        from repro_torch.launch import specs
+        from repro_torch.train import optimizer, steps
+        from repro_torch.train.tree import leaves, leaves_with_paths, tree_map
+
+        run, tol = LM_SMOKE_RUN, LM_SMOKE_TOL
+        params = specs.build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        card_params = tree_map(lambda t: t.to(dev, copy=True), params)  # each step updates its own
+        batch = {"tokens": torch.from_numpy(loader.PiperTokenBatches(
+            sparse, cfg.vocab_size, run["batch"], run["seq"])(0)["tokens"]),
+            **self._stub_inputs(cfg, run["batch"], "cpu", seed=3)}
+        opt_cfg = optimizer.AdamWConfig(schedule=optimizer.constant_schedule(LM_LR))
+        metrics = {}
+        for where, device, p in (("card", dev, card_params), ("cpu", torch.device("cpu"), params)):
+            step = steps.make_train_step(specs.build_model(cfg, device=device), opt_cfg,
+                                         run["microbatches"])
+            m = step(p, optimizer.adamw_init(p), {k: t.to(device) for k, t in batch.items()})
+            metrics[where] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        rec = {**{k: run[k] for k in ("batch", "seq", "microbatches")}, "tolerance": tol,
+               "batch_keys": sorted(batch), **metrics}
+        rec["loss_rel_err"], rec["grad_norm_rel_err"] = (
+            abs(metrics["card"][k] / metrics["cpu"][k] - 1) for k in ("loss", "grad_norm"))
+        flips = {"/".join(path): float(((a.detach().cpu() - b.detach()).abs() > LM_LR)
+                                       .float().mean())
+                 for (path, a), b in zip(leaves_with_paths(card_params), leaves(params))}
+        rec["worst_flip_frac"] = max(flips.items(), key=lambda kv: kv[1])
+        expect(rec["loss_rel_err"] <= tol["loss_rel"] and
+               rec["grad_norm_rel_err"] <= tol["grad_norm_rel"] and
+               rec["worst_flip_frac"][1] <= tol["flip_frac"],
+               f"cross SMOKE {cfg.name}: a train step on the card differs from the CPU's beyond "
+               f"{tol}: {rec}")
+        return rec
+
+    def _cross_model(self, arch: str, cfg, sparse, batch: int, seq: int, out: dict) -> dict:
+        """One model at full width: its flash-route prefill (launches counted
+        and split between self and cross layers, timed, profiled, held to
+        the chunked route: the first layer of each kind the kernel takes in
+        bf16, the first prompt through the whole model in float32), then
+        float32 decode of CROSS_DECODE's prompts after fill_context_caches,
+        held to their prefill, and a bf16 decode timed. Returns the
+        prefill's launches by record tag."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.data import loader
+        from repro_torch.kernels.flash_attention import ops as faops
+        from repro_torch.launch import specs
+        from repro_torch.models import lm
+        from repro_torch.train import steps
+
+        kernels = counters()
+        t0 = time.perf_counter()
+        model = specs.build_model(cfg, attn_impl="flash", device=dev)
+        params = model.init(torch.Generator(dev).manual_seed(0))
+        self.sync()
+        out["init_s"] = time.perf_counter() - t0
+        prefill = steps.make_prefill_step(model)
+        tokens = torch.from_numpy(
+            loader.PiperTokenBatches(sparse, cfg.vocab_size, batch, seq)(0)["tokens"]).to(dev)
+        extra = self._stub_inputs(cfg, batch, dev)
+        inputs = {"tokens": tokens, **extra}
+        calls, real = [], faops.flash_attention
+
+        def spy(q, k, v, *, causal=True):
+            calls.append("self" if causal else "cross")
+            return real(q, k, v, causal=causal)
+
+        faops.flash_attention = spy
+        try:
+            reset_counters(kernels)
+            logits = prefill(params, inputs)
+            self.sync()
+        finally:
+            faops.flash_attention = real
+        got = {k: v.launches for k, v in kernels.items()}
+        n_flash = 0 if self.rehearse else CROSS_FLASH_LAUNCHES[arch]
+        want = dict.fromkeys(kernels, 0)
+        want["flash_attention"] = n_flash
+        expect(got == want, f"cross {cfg.name} prefill: launched "
+               f"{ {k: v for k, v in got.items() if v} }, expected {n_flash} flash_attention "
+               "and no other kernel")
+        split = {kind: calls.count(kind) for kind in ("self", "cross")}
+        expect(self.rehearse or sum(split.values()) == got["flash_attention"],
+               f"cross {cfg.name} prefill: {split} wrapper calls for "
+               f"{got['flash_attention']} launches")
+        expect(tuple(logits.shape) == (batch, cfg.vocab_size) and
+               bool(torch.isfinite(logits).all()), f"cross {cfg.name} prefill: logits of "
+               f"shape {tuple(logits.shape)}, or not finite")
+        secs = self.wall_seconds(lambda: prefill(params, inputs), n=2)
+        med = statistics.median(secs)
+        stats = {"batch": batch, "seq": seq, "stub_inputs": {k: list(t.shape)
+                                                             for k, t in extra.items()},
+                 "seconds": secs, "ms_per_call": med * 1e3, "tokens_per_s": batch * seq / med,
+                 "flash_launches": split, "launches": {k: v for k, v in got.items() if v}}
+        prof = self.profile(lambda: prefill(params, inputs))
+        if prof is not None:
+            busy = sum(r["ms"] for r in prof)
+            stats.update(device_busy_share=busy / stats["ms_per_call"],
+                         profiled_call={"device_ms": busy, "top": prof[:8]})
+        del logits
+        self._cross_routes(model, params, inputs, stats)
+        out["prefill"] = stats
+        if not self.rehearse:
+            out["prefill_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        del inputs, tokens, extra
+        # decode: float32 held to the prefill, then bf16 timed
+        d = CROSS_DECODE
+        prompts = torch.from_numpy(loader.PiperTokenBatches(
+            sparse, cfg.vocab_size, d["prompts"], d["prompt_len"])(1)["tokens"]).to(dev)
+        extra = self._stub_inputs(cfg, d["prompts"], dev, seed=2)
+        f32 = self._zoo_decode_f32(model, params, prompts, d["prompt_len"], extra)
+        expect(f32["vs_prefill_rel_l2"] <= ZOO_F32_REL_L2, f"cross {cfg.name}: float32 decode "
+               f"of {d['prompts']} prompts after fill_context_caches differs from the prefill "
+               f"of the first by {f32['vs_prefill_rel_l2']} > {ZOO_F32_REL_L2}")
+        with torch.no_grad():
+            decoder, context = self._decoder_context(model, params, extra, torch.bfloat16)
+            state = decoder.init_decode_state(d["prompts"], d["prompt_len"])
+            self.sync()
+            t0 = time.perf_counter()
+            decoder.fill_context_caches(params, state, context)
+            self.sync()
+            fill_s = time.perf_counter() - t0
+            step = steps.make_serve_step(model)
+            times = []
+            for pos in range(d["prompt_len"]):
+                self.sync()
+                t0 = time.perf_counter()
+                step(params, state, prompts[:, pos], pos)
+                self.sync()
+                times.append(time.perf_counter() - t0)
+            prof = self.profile(lambda: step(params, state, prompts[:, -1], d["prompt_len"] - 1))
+        out["decode"] = {**d, "f32_vs_prefill_rel_l2": f32["vs_prefill_rel_l2"],
+                         "fill_context_caches_ms": fill_s * 1e3,
+                         "bf16_ms_per_step": statistics.median(times) * 1e3,
+                         "bf16_step_ms": [t * 1e3 for t in times]}
+        if prof is not None:
+            busy = sum(r["ms"] for r in prof)
+            out["decode"].update(device_busy_share=busy / out["decode"]["bf16_ms_per_step"],
+                                 profiled_step={"device_ms": busy,
+                                                "device_launches": sum(r["count"] for r in prof),
+                                                "top": prof[:6]})
+        if not self.rehearse:
+            out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        tags = self._cross_tags(arch, batch, seq)
+        return {tag: dict(got, flash_attention=0 if self.rehearse else split[kind])
+                for kind, tag in tags.items()}
+
+    def _cross_routes(self, model, params, inputs: dict, stats: dict) -> None:
+        """The flash prefill against the chunked route, the reference's: in
+        bf16 the first layer of each attention kind the kernel takes, on the
+        same input (the embedding; the decoder's context), within
+        SERVE_REL_L2; in float32 the whole model on the first prompt, within
+        ZOO_F32_REL_L2."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.kernels.flash_attention import ops as faops
+        from repro_torch.launch import specs
+        from repro_torch.models import lm
+        from repro_torch.train import steps
+
+        cfg = model.cfg
+        tokens = inputs["tokens"]
+        extra = {k: t for k, t in inputs.items() if k != "tokens"}
+        layers = {}
+        with torch.no_grad():
+            _, context = self._decoder_context(model, params, extra, torch.bfloat16)
+            x = params["embed"][tokens.to(torch.int64)].to(torch.bfloat16)
+            seq, ctx_len = tokens.shape[1], context.shape[1]
+            for j, spec in enumerate(cfg.superblock):
+                kind = "cross" if spec.attn == "cross" else "self"
+                takes = faops.takes(seq, ctx_len if kind == "cross" else seq,
+                                    causal=kind == "self")
+                if kind in layers or not takes:
+                    continue
+                p = params["blocks"][0][j]
+                a, _ = lm._block_forward(x, p, spec, cfg, impl="flash", context=context)
+                b, _ = lm._block_forward(x, p, spec, cfg, impl="chunked", context=context)
+                layers[kind] = {"layer": j, "rel_l2": self._rel_l2(a - x, b - x)}
+                del a, b
+            del x, context
+        stats["first_layer_vs_chunked_rel_l2"] = layers
+        for kind, rec in layers.items():
+            expect(rec["rel_l2"] <= SERVE_REL_L2, f"cross {cfg.name}: the first {kind} layer's "
+                   f"update differs between flash and chunked by {rec['rel_l2']} > "
+                   f"{SERVE_REL_L2}")
+        f32 = torch.float32
+        one = {k: t[:1] for k, t in inputs.items()}
+        got = steps.make_prefill_step(model)(params, one, compute_dtype=f32)
+        chunked = specs.build_model(cfg, attn_impl="chunked", device=dev)
+        want = steps.make_prefill_step(chunked)(params, one, compute_dtype=f32)
+        stats["f32_vs_chunked_rel_l2"] = self._rel_l2(got, want)
+        del got, want
+        expect(stats["f32_vs_chunked_rel_l2"] <= ZOO_F32_REL_L2,
+               f"cross {cfg.name} prefill in float32: flash and chunked differ by "
+               f"{stats['f32_vs_chunked_rel_l2']} > {ZOO_F32_REL_L2}")
 
     # -- phase 10 ------------------------------------------------------- #
     def analysis(self) -> dict:
@@ -4030,7 +4417,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,golden,main,sharded,stream,train,serve,e2e,lm_train,"
-                            "zoo,analysis")
+                            "zoo,cross,analysis")
     ap.add_argument("--out", default=None,
                     help="also write the kernel summary and every printed record to this JSON file")
     ap.add_argument("--rehearse", action="store_true",
@@ -4054,10 +4441,11 @@ def main(argv=None) -> int:
     device = smoke.device()
     records, main_launches, train_launches, serve_launches = {}, None, None, None
     stream_launches = e2e_launches = lm_launches = sharded_launches = None
-    analysis_launches = zoo_launches = None
+    analysis_launches = zoo_launches = cross_launches = None
     rows = REHEARSAL_ROWS if args.rehearse else ROWS
     data = (make_data(np, rows)
-            if phases & {"kernels", "main", "sharded", "stream", "train", "serve", "e2e", "zoo"}
+            if phases & {"kernels", "main", "sharded", "stream", "train", "serve", "e2e", "zoo",
+                         "cross"}
             else None)
     if "kernels" in phases:
         records = smoke.kernels(data)
@@ -4120,6 +4508,14 @@ def main(argv=None) -> int:
                            if not t.startswith("xlstm")),
                        f"zoo path: {name} was not launched in every qwen2-moe and hymba prefill")
 
+    if "cross" in phases:
+        cross_records, cross_launches = smoke.cross(data)
+        records.update(cross_records)
+        if not args.rehearse:
+            for name in CROSS_KERNELS:
+                expect(all(m[name] > 0 for m in cross_launches.values()),
+                       f"cross path: {name} was not launched by every layer kind of a prefill")
+
     if "analysis" in phases:
         analysis_launches = smoke.analysis()
         if not args.rehearse:
@@ -4128,11 +4524,12 @@ def main(argv=None) -> int:
                        "launched")
 
     # launches on the paths: the main, sharded, stream, train and e2e phases'
-    # per range, the serve and zoo phases' per prefill, the lm_train phase's,
-    # the analysis phase's audited routes
+    # per range, the serve and zoo phases' per prefill, the cross phase's per
+    # prefill and layer kind, the lm_train phase's, the analysis phase's
+    # audited routes
     paths = [m for m in (main_launches, sharded_launches, stream_launches, train_launches,
                          serve_launches, e2e_launches, lm_launches, zoo_launches,
-                         analysis_launches)
+                         cross_launches, analysis_launches)
              if m is not None]
     kernels = []
     for key, rec in records.items():
@@ -4154,7 +4551,8 @@ def main(argv=None) -> int:
             "launch_floor_ms": rec.get("launch_floor_ms", smoke.floor_ms),
             "on_main_path": name in (PATH_KERNELS + SHARDED_KERNELS + STREAM_KERNELS
                                      + TRAIN_KERNELS + SERVE_KERNELS + E2E_KERNELS
-                                     + LM_TRAIN_KERNELS + ZOO_KERNELS + ANALYSIS_KERNELS),
+                                     + LM_TRAIN_KERNELS + ZOO_KERNELS + CROSS_KERNELS
+                                     + ANALYSIS_KERNELS),
             "shape": rec["shape"],
         })
     seconds = time.perf_counter() - t_start

@@ -10,7 +10,7 @@ loop ②).
 
 The parameter, activation and cache rules (``param_shardings``,
 ``cache_shardings``, ``use_mesh``, ``constrain``) come with sharded
-training (ROADMAP queue 1 item 10).
+training (ROADMAP queue 1 item 10, slice 19).
 """
 
 from __future__ import annotations

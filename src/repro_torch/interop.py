@@ -10,10 +10,11 @@ into the port's, so both compile one plan. The DLRM's parameters and its
 AdamW state move as the JAX package's trees of numpy arrays, so both
 packages train from the same weights; the language model's parameters
 move the same way (:func:`lm_params_from_numpy`, every layer kind's
-leaves: attention, MoE, Mamba, mLSTM, sLSTM), and so do an LM trainer's
-state (:func:`lm_train_state_to_numpy`), which is the tree its checkpoints
+leaves: attention, MoE, Mamba, mLSTM, sLSTM, and an ``EncDec``'s
+encoder), and so do an LM trainer's state
+(:func:`lm_train_state_to_numpy`), which is the tree its checkpoints
 hold, and an LM's decode state (:func:`lm_decode_state_to_numpy`: KV
-caches, ring slots and recurrent states).
+caches, ring slots, cross layers' context caches and recurrent states).
 """
 
 from __future__ import annotations
@@ -146,16 +147,23 @@ def adamw_state_to_numpy(state: dict) -> dict:
     return tree_map(lambda t: t.detach().cpu().numpy(), state)
 
 
+def _lm_skeleton(cfg) -> dict:
+    """The port's parameters of ``cfg`` on the ``meta`` device (no memory):
+    ``EncDec``'s for the audio family, else ``LM``'s."""
+    model = lm_lib.EncDec if cfg.family == "audio" else lm_lib.LM
+    return model(cfg, device="meta").init()
+
+
 def lm_params_from_numpy(tree, cfg, *, device="cuda"):
     """The JAX package's ``LM.init`` tree for ``cfg`` (float32 arrays:
     ``embed``, the ``blocks`` tuple of per-spec dicts stacked on a leading
-    ``n_superblocks`` axis, ``final_norm``, and ``lm_head`` when untied)
-    → the port's ``LM`` parameters on ``device``, superblock by superblock.
-    Every leaf's shape is checked against the port's own parameters."""
+    ``n_superblocks`` axis, ``final_norm``, and ``lm_head`` when untied;
+    for the audio family ``EncDec.init``'s, which adds ``encoder``:
+    ``blocks`` stacked on ``n_encoder_superblocks``, ``pos_embed``,
+    ``final_norm``) → the port's parameters on ``device``, superblock by
+    superblock. Every leaf's shape is checked against the port's own
+    parameters."""
     dev = lm_lib._resolve_device(device)
-    skeleton = lm_lib.LM(cfg, device="meta").init()
-    if len(tree["blocks"]) != len(cfg.superblock):
-        raise ValueError(f"{len(tree['blocks'])} stacked specs, expected {len(cfg.superblock)}")
 
     def load(want, x, name):
         t = _float32(x, name)
@@ -163,17 +171,27 @@ def lm_params_from_numpy(tree, cfg, *, device="cuda"):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(want.shape)}")
         return t.to(dev)
 
-    out = {}
-    for key in skeleton:
-        if key == "blocks":
-            continue
-        out[key] = tree_map(lambda w, x: load(w, x, key), skeleton[key], tree[key])
-    out["blocks"] = [
-        [tree_map(lambda w, x: load(w, np.asarray(x)[i], f"blocks[{j}][{i}]"), p, tree["blocks"][j])
-         for j, p in enumerate(sb)]
-        for i, sb in enumerate(skeleton["blocks"])
-    ]
-    return out
+    def unstack(skeleton, stacked, specs, name):
+        if len(stacked) != len(specs):
+            raise ValueError(f"{name}: {len(stacked)} stacked specs, expected {len(specs)}")
+        return [
+            [tree_map(lambda w, x: load(w, np.asarray(x)[i], f"{name}[{j}][{i}]"), p, stacked[j])
+             for j, p in enumerate(sb)]
+            for i, sb in enumerate(skeleton)
+        ]
+
+    def tree_of(skeleton, node, specs, prefix=""):
+        out = {}
+        for key, sub in skeleton.items():
+            if key == "blocks":
+                out[key] = unstack(sub, node[key], specs, prefix + key)
+            elif key == "encoder":
+                out[key] = tree_of(sub, node[key], cfg.encoder_superblock, "encoder.")
+            else:
+                out[key] = tree_map(lambda w, x: load(w, x, prefix + key), sub, node[key])
+        return out
+
+    return tree_of(_lm_skeleton(cfg), tree, cfg.superblock)
 
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:
@@ -181,21 +199,33 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
-def lm_params_to_numpy(params) -> dict:
-    """The port's ``LM`` parameters → the JAX package's tree: float32 numpy
-    arrays, each spec's layers stacked on a leading ``n_superblocks`` axis.
-    Every array is a host copy of its own, each layer copied once, straight
-    into its slot."""
-    out = {k: tree_map(_host_copy, v) for k, v in params.items() if k != "blocks"}
+def _stacked(params: dict, stack, leaf) -> dict:
+    """``params`` in the reference's layout: every ``blocks`` list (the
+    decoder's, the encoder's) a tuple of per-spec trees with each leaf
+    ``stack(*layers)``, every other leaf ``leaf(t)``."""
+    out = {}
+    for key, sub in params.items():
+        if key == "blocks":
+            out[key] = tuple(tree_map(stack, *specs) for specs in zip(*sub))
+        elif key == "encoder":
+            out[key] = _stacked(sub, stack, leaf)
+        else:
+            out[key] = tree_map(leaf, sub)
+    return out
 
+
+def lm_params_to_numpy(params) -> dict:
+    """The port's ``LM`` or ``EncDec`` parameters → the JAX package's tree:
+    float32 numpy arrays, each spec's layers stacked on a leading
+    ``n_superblocks`` (``n_encoder_superblocks``) axis. Every array is a
+    host copy of its own, each layer copied once, straight into its slot."""
     def stack(*layers):
         arr = np.empty((len(layers),) + tuple(layers[0].shape), np.float32)
         for i, t in enumerate(layers):
             torch.from_numpy(arr[i]).copy_(t.detach())
         return arr
 
-    out["blocks"] = tuple(tree_map(stack, *specs) for specs in zip(*params["blocks"]))
-    return out
+    return _stacked(params, stack, _host_copy)
 
 
 def lm_adamw_state_from_numpy(state, cfg, *, device="cuda") -> dict:
@@ -235,14 +265,11 @@ def lm_train_state_like(cfg) -> dict:
     """The shapes of :func:`lm_train_state_to_numpy`'s tree for ``cfg``, as
     tensors on the ``meta`` device (no memory): the ``like`` tree of
     ``train/checkpoint.py::restore``."""
-    skeleton = lm_lib.LM(cfg, device="meta").init()
-    n = cfg.n_superblocks
+    def stack(*layers):
+        t = layers[0]
+        return torch.empty((len(layers),) + tuple(t.shape), dtype=t.dtype, device="meta")
 
-    def stacked(t):
-        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device="meta")
-
-    params = {k: v for k, v in skeleton.items() if k != "blocks"}
-    params["blocks"] = tuple(tree_map(stacked, p) for p in skeleton["blocks"][0])
+    params = _stacked(_lm_skeleton(cfg), stack, lambda t: t)
     step = torch.empty((), dtype=torch.int32, device="meta")
     return {"params": params, "opt": {"m": params, "v": params, "step": step}}
 
@@ -250,8 +277,9 @@ def lm_train_state_like(cfg) -> dict:
 def lm_decode_state_to_numpy(state) -> tuple:
     """The port's ``LM`` decode state (``[superblock][spec]`` dicts) → the
     JAX package's: a tuple of per-spec dicts, each leaf stacked on a leading
-    ``n_superblocks`` axis. Floating leaves become float32 arrays (a bf16
-    cache exactly), ``slot_pos`` stays int32."""
+    ``n_superblocks`` axis (KV caches, ring slots, a cross layer's
+    ``ctx_kv``, recurrent states). Floating leaves become float32 arrays (a
+    bf16 cache exactly), ``slot_pos`` stays int32."""
     def stack(*layers):
         return np.stack([_host_copy(t if t.dtype == torch.int32 else t.to(torch.float32))
                          for t in layers])
@@ -262,9 +290,9 @@ def lm_decode_state_to_numpy(state) -> tuple:
 def lm_decode_state_from_numpy(tree, *, dtype=torch.bfloat16, device="cuda") -> list:
     """The JAX package's decode state of an ``LM`` (a tuple of per-spec
     dicts stacked on ``n_superblocks``, as ``init_decode_state`` makes it)
-    → the port's ``[superblock][spec]`` dicts on ``device``: the KV caches
-    (``k``, ``v``) in ``dtype``, ``slot_pos`` int32, the recurrent states
-    float32."""
+    → the port's ``[superblock][spec]`` dicts on ``device``: the KV and
+    context caches (``k``, ``v`` of ``kv`` and ``ctx_kv``) in ``dtype``,
+    ``slot_pos`` int32, the recurrent states float32."""
     dev = lm_lib._resolve_device(device)
 
     def load(node, i, key=""):

@@ -69,6 +69,17 @@ def launch_accounting(symbol: str, batch: int, hq: int, len_q: int, head_dim: in
                                  smem)]
 
 
+def takes(len_q: int, len_kv: int, *, causal: bool) -> bool:
+    """Whether :func:`flash_attention` takes ``len_q`` queries over ``len_kv``
+    keys: each length a positive multiple of ``min(BLOCK, length)``, and equal
+    when ``causal`` (the sequence half of :func:`_check_shapes`). The LM
+    chooses its route with it; a layer the kernel does not take runs the
+    chunked route."""
+    if len_q <= 0 or len_kv <= 0 or (causal and len_q != len_kv):
+        return False
+    return len_q % min(BLOCK, len_q) == 0 and len_kv % min(BLOCK, len_kv) == 0
+
+
 def _check_shapes(q, k, v, *, causal: bool) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(

@@ -7,7 +7,7 @@ share a device: on a machine with one card every shard of a mesh runs on
 ``cuda:0``, one after another on the caller's stream.
 
 The reference's ``make_production_mesh`` (TPU pods of 256 and 512 chips)
-comes with the dry-run (ROADMAP queue 1 item 10).
+comes with sharded training (ROADMAP queue 1 item 10, slice 19).
 """
 
 from __future__ import annotations

@@ -93,6 +93,8 @@ def main(argv=None):
         return run_piper_stream(args)
 
     cfg = configs.get_smoke(args.arch)
+    if cfg.family == "audio":
+        raise SystemExit("use a decoder-only arch for the serve demo")
     model = lm_lib.LM(cfg, device=args.device)
     params = model.init(torch.Generator(model.device).manual_seed(0))
     eng = engine_lib.ServeEngine(model, params, batch_slots=args.slots, cache_len=args.cache_len)

@@ -12,6 +12,8 @@ reference, turns remat off::
 The data source is Piper: a synthetic Criteo-format stream goes through
 the two-loop engine on the same device, and its vocabulary-encoded
 ordinals feed the LM as token windows (``data/loader.PiperTokenBatches``).
+The audio and vision architectures also get the reference's seeded stub
+inputs a step (``frames``, ``vision``: normal · 0.1).
 It runs on the card unless ``--device cpu`` is given, and raises without
 one.
 """
@@ -74,15 +76,25 @@ def main(argv=None) -> dict:
 
     cfg = configs.get(args.arch) if args.full else configs.get_smoke(args.arch)
     model = specs_lib.build_model(cfg, remat=not args.full, device=args.device)
-    if cfg.vision_tokens:
-        raise NotImplementedError(f"{cfg.name}: the vision family comes with cross-attention "
-                                  "(ROADMAP queue 1 item 10, slice 18)")
 
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M remat={model.remat} "
           f"on {model.device}")
     print("preprocessing synthetic Criteo stream through PIPER...")
     sparse = preprocess_tokens(args.rows, device=args.device)
-    batch_fn = loader.PiperTokenBatches(sparse, cfg.vocab_size, args.batch, args.seq)
+    base_fn = loader.PiperTokenBatches(sparse, cfg.vocab_size, args.batch, args.seq)
+
+    def batch_fn(step: int) -> dict:
+        """Piper's tokens, and the reference's seeded stub inputs: frames
+        for the audio family, patch embeddings for a vision LM."""
+        batch = dict(base_fn(step))
+        rng = np.random.default_rng((1234, step))
+        if cfg.family == "audio":
+            batch["frames"] = rng.standard_normal(
+                (args.batch, cfg.encoder_frames, cfg.d_model)).astype(np.float32) * 0.1
+        if cfg.vision_tokens:
+            batch["vision"] = rng.standard_normal(
+                (args.batch, cfg.vision_tokens, cfg.d_model)).astype(np.float32) * 0.1
+        return batch
 
     tcfg = trainer_lib.TrainerConfig(
         total_steps=args.steps,

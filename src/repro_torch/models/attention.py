@@ -1,4 +1,4 @@
-"""Attention layers: GQA/MQA, sliding window; prefill and decode.
+"""Attention layers: GQA/MQA, sliding window, cross; prefill and decode.
 
 Counterpart of ``repro/models/attention.py``. Three routes, one semantics:
 
@@ -26,8 +26,14 @@ product, so the port casts the cache to float32 at each step (the
 products of bf16 values are exact in float32, so only the summation order
 differs), which costs one float32 copy of the layer's cache per step. The
 cache is updated in place, where the reference returns a new one.
-Cross-attention comes with the encoder-decoder and vision families
-(ROADMAP queue 1 item 10, slice 18).
+
+Cross-attention (the vision LM's cross layers, the encoder-decoder's
+decoder) attends the queries of the token stream to keys and values that
+``context_kv`` projects from the context (patch or encoder states): no
+RoPE on either side, never causal, on the chunked route as the reference
+runs it, or on the flash kernel with ``use_flash_kernel``. A decode step
+attends its one query to the same projections, computed once a request
+into the decode state's ``ctx_kv`` (``LM.fill_context_caches``).
 """
 
 from __future__ import annotations
@@ -204,6 +210,37 @@ def forward(
         out = (checkpoint(fn, q, k, v, use_reentrant=False, preserve_rng_state=False)
                if torch.is_grad_enabled() else fn(q, k, v))
     return common.dense(_merge_heads(out), params["wo"])
+
+
+def cross_forward(
+    x: torch.Tensor,
+    context_kv: tuple[torch.Tensor, torch.Tensor],
+    params: Params,
+    cfg: ModelConfig,
+    *,
+    use_flash_kernel: bool = False,
+) -> torch.Tensor:
+    """Cross-attention of x [B, Sq, d] against precomputed context k/v
+    [B, Hkv, Sc, D] (:func:`context_kv`), not causal, without RoPE. The
+    chunked route, the reference's, computes in float32 whatever the
+    dtypes of q and k/v; the kernel takes k/v cast to q's dtype."""
+    q = _split_heads(common.dense(x, params["wq"]), cfg.n_heads)
+    k, v = context_kv
+    if use_flash_kernel:
+        out = fa_ops.flash_attention(q, k.to(q.dtype), v.to(q.dtype), causal=False)
+    else:
+        out = attention_chunked(q, k, v, causal=False)
+    return common.dense(_merge_heads(out), params["wo"])
+
+
+def context_kv(
+    context: torch.Tensor, params: Params, cfg: ModelConfig
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention k and v [B, Hkv, Sc, D] of the context states
+    [B, Sc, d] (in the context's dtype, as strided head views)."""
+    k = _split_heads(common.dense(context, params["wk"]), cfg.n_kv_heads)
+    v = _split_heads(common.dense(context, params["wv"]), cfg.n_kv_heads)
+    return k, v
 
 
 # --------------------------------------------------------------------- #

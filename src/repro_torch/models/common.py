@@ -91,11 +91,13 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Exact parameter count, from the port's own parameters built on
-        the ``meta`` device (no memory)."""
+        the ``meta`` device (no memory): ``EncDec``'s for the audio family
+        (the encoder included), else ``LM``'s."""
         from repro_torch.models import lm as _lm
         from repro_torch.train.tree import leaves
 
-        params = _lm.LM(self, device="meta").init()
+        model = _lm.EncDec if self.family == "audio" else _lm.LM
+        params = model(self, device="meta").init()
         return sum(t.numel() for t in leaves(params))
 
 

@@ -1,12 +1,13 @@
-"""Decoder-only language model: superblocks of attention, SSM and MLP layers.
+"""Language models: superblocks of attention, SSM and MLP layers.
 
-Counterpart of ``repro/models/lm.py::LM`` for every decoder-only layer
-kind: ``attn`` (causal or bidirectional, optionally sliding-window),
-``hymba`` (attention and Mamba heads in parallel on the same input,
+Counterpart of ``repro/models/lm.py``: :class:`LM` for every layer kind,
+``attn`` (causal or bidirectional, optionally sliding-window, or
+``cross``: attention to a context of patch or encoder states), ``hymba``
+(attention and Mamba heads in parallel on the same input,
 ``x + 0.5·(rms(a) + rms(m))``), ``mamba``, ``mlstm`` and ``slstm``, each
-with a dense or an MoE MLP (``LayerSpec.moe``). Cross-attention and
-``EncDec`` come with the encoder-decoder and vision families (ROADMAP
-queue 1 item 10, slice 18) and raise ``NotImplementedError``.
+with a dense or an MoE MLP (``LayerSpec.moe``); and :class:`EncDec`, the
+whisper-style encoder-decoder, whose decoder is an ``LM`` with cross
+layers over the encoder's output.
 
 The parameters are the reference's tree, with the stacked per-spec arrays
 unstacked into a list: ``{"embed" [V, d], "blocks": [superblock][spec]
@@ -15,18 +16,22 @@ the compute dtype at each use. The reference runs the superblocks as one
 ``lax.scan``; here they are a Python loop, with the same float32 residual
 carry across superblocks and the MoE auxiliary loss summed over layers.
 
-Entry points:
-    init(generator)                          → params
-    trunk(params, tokens)                    → (final-norm hidden, MoE aux)
-    hidden(params, tokens)                   → final-norm hidden states
-    forward(params, tokens)                  → logits
-    loss(params, tokens)                     → next-token CE + aux_weight · aux
-    init_decode_state(batch, cache_len)      → per-layer caches and states
-    decode_step(params, token, state, pos)   → (logits, state)
+Entry points (``context`` [B, Sc, d]: the vision LM's patch embeddings,
+or the encoder's output; only cross layers read it):
+    init(generator)                              → params
+    trunk(params, tokens, context=)              → (final-norm hidden, MoE aux)
+    hidden(params, tokens, context=)             → final-norm hidden states
+    forward(params, tokens, context=)            → logits
+    loss(params, tokens, context=)               → next-token CE + aux_weight · aux
+    init_decode_state(batch, cache_len)          → per-layer caches and states
+    fill_context_caches(params, state, context)  → state with the cross layers' k/v
+    decode_step(params, token, state, pos)       → (logits, state)
 
 A layer's decode state is the reference's: ``{"kv": {"k", "v"}}`` (a
 ``ring`` cache of ``min(window, cache_len)`` slots with ``slot_pos`` for a
-sliding-window layer), ``"mamba"`` [B, di, N], ``"mlstm": {"s", "n"}``,
+sliding-window layer), ``"ctx_kv": {"k", "v"}`` for a cross layer
+(``[B, Hkv, vision_tokens or encoder_frames, D]``, zeros until
+``fill_context_caches``), ``"mamba"`` [B, di, N], ``"mlstm": {"s", "n"}``,
 ``"slstm": {"c", "n", "h", "m"}``, the recurrent states float32.
 
 Training: ``loss`` differentiates once the parameters require gradients
@@ -41,11 +46,15 @@ so the full [B, S, V] logits are never held.
 ``attn_impl`` picks the attention route of the full-sequence passes:
 ``"chunked"`` (the reference's default, and the one that trains),
 ``"einsum"``, or ``"flash"``, the hand-written kernel
-(``attention.forward(use_flash_kernel=True)``), which is forward only: a
-backward through it raises. The kernel has no sliding window, so on the
-flash route the layers with ``window > 0`` take the chunked route; the
-reference's flash path attends to the whole sequence there (a fault of
-the reference, ROADMAP queue 3), which the port does not copy.
+(``attention.forward`` / ``cross_forward`` with ``use_flash_kernel=True``),
+which is forward only: a backward through it raises. On the flash route a
+layer takes the kernel where its contract takes the layer's shapes
+(``flash_attention.ops.takes``: no sliding window, each sequence length a
+multiple of ``min(128, length)``, causal layers ``Sq == Skv``), and the
+chunked route otherwise, chosen from the shapes. The reference's flash
+path attends to the whole sequence in windowed layers (a fault of the
+reference, ROADMAP queue 3), which the port does not copy. Cross layers
+run the chunked route on the ``"einsum"`` route too, as the reference's.
 """
 
 from __future__ import annotations
@@ -55,20 +64,24 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention, common, mlp, ssm
 from repro_torch.models.common import LayerSpec, ModelConfig, Params
 
 ATTN_IMPLS = ("chunked", "einsum", "flash")
 KINDS = ("attn", "hymba", "mamba", "mlstm", "slstm")
+ATTN_KINDS = ("causal", "bidir", "cross")
 
 
 def _check_spec(spec: LayerSpec) -> None:
     if spec.kind not in KINDS:
         raise ValueError(f"layer {spec}: kind must be one of {KINDS}")
-    if spec.kind == "attn" and spec.attn not in ("causal", "bidir"):
-        raise NotImplementedError(
-            f"layer {spec}: cross-attention comes with the encoder-decoder and vision "
-            "families (ROADMAP queue 1 item 10, slice 18)")
+    if spec.kind == "attn" and spec.attn not in ATTN_KINDS:
+        raise ValueError(f"layer {spec}: attn must be one of {ATTN_KINDS}")
+
+
+def _is_cross(spec: LayerSpec) -> bool:
+    return spec.kind == "attn" and spec.attn == "cross"
 
 
 def _resolve_device(device) -> torch.device:
@@ -130,18 +143,27 @@ def _block_mlp(x: torch.Tensor, p: Params, spec: LayerSpec, cfg: ModelConfig):
 
 def _block_forward(
     x: torch.Tensor, p: Params, spec: LayerSpec, cfg: ModelConfig, *, impl: str,
-    block_k: int = 1024,
+    block_k: int = 1024, context: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block. Returns (x, MoE aux: a float32 tensor for an MoE
-    layer, else 0.0)."""
+    layer, else 0.0). A cross layer attends to ``context`` [B, Sc, d]
+    through its own ``wk``/``wv``."""
     _check_spec(spec)
     h = common.norm(x, p["ln1"], cfg.norm)
-    flash = impl == "flash" and spec.window == 0
-    route = "chunked" if impl == "flash" else impl
-    if spec.kind in ("attn", "hymba"):
+    s = x.shape[1]
+    if _is_cross(spec):
+        if context is None:
+            raise ValueError(f"layer {spec}: a cross-attention layer needs a context")
+        kv = attention.context_kv(context, p["attn"], cfg)
+        flash = impl == "flash" and fa_ops.takes(s, kv[0].shape[2], causal=False)
+        x = x + attention.cross_forward(h, kv, p["attn"], cfg, use_flash_kernel=flash)
+    elif spec.kind in ("attn", "hymba"):
+        causal = spec.kind == "hymba" or spec.attn == "causal"
+        flash = impl == "flash" and spec.window == 0 and fa_ops.takes(s, s, causal=causal)
         a = attention.forward(
-            h, p["attn"], cfg, causal=spec.kind == "hymba" or spec.attn == "causal",
-            window=spec.window, impl=route, use_flash_kernel=flash, block_k=block_k)
+            h, p["attn"], cfg, causal=causal, window=spec.window,
+            impl="chunked" if impl == "flash" else impl, use_flash_kernel=flash,
+            block_k=block_k)
         if spec.kind == "attn":
             x = x + a
         else:
@@ -161,7 +183,11 @@ def _block_cache_init(
     """Decode-state skeleton for one spec (zeros; decode fills it)."""
     _check_spec(spec)
     c: Params = {}
-    if spec.kind in ("attn", "hymba"):
+    if _is_cross(spec):
+        shape = (batch, cfg.n_kv_heads, cfg.vision_tokens or cfg.encoder_frames, cfg.head_dim)
+        c["ctx_kv"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)}
+    elif spec.kind in ("attn", "hymba"):
         kind = "ring" if spec.window else "full"
         length = min(spec.window, cache_len) if spec.window else cache_len
         c["kv"] = attention.init_cache(
@@ -188,7 +214,10 @@ def _block_decode(
     _check_spec(spec)
     new_cache = dict(cache)
     h = common.norm(x, p["ln1"], cfg.norm)
-    if spec.kind in ("attn", "hymba"):
+    if _is_cross(spec):
+        ctx = cache["ctx_kv"]
+        x = x + attention.cross_forward(h, (ctx["k"], ctx["v"]), p["attn"], cfg)
+    elif spec.kind in ("attn", "hymba"):
         a, new_cache["kv"] = attention.decode_step(
             h, cache["kv"], pos, p["attn"], cfg, spec=_cache_spec_of(cache),
             window=spec.window)
@@ -231,7 +260,9 @@ def reset_decode_rows(state: list, rows) -> None:
     anew, in place, for a new request: every recurrent state's rows back
     to their initial value. The KV caches keep their rows: the decode's
     position mask (``kpos <= pos``, a ring's ``slot_pos``) hides what an
-    earlier request wrote until the new one has overwritten it."""
+    earlier request wrote until the new one has overwritten it. A cross
+    layer's ``ctx_kv`` is not a recurrent state and is left alone: it holds
+    what ``LM.fill_context_caches`` last wrote."""
     for sb in state:
         for cache in sb:
             for t, init in _recurrent_states(cache):
@@ -293,6 +324,16 @@ def chunked_ce(
     return total / torch.clamp(torch.sum(weights), min=1.0)
 
 
+def _next_token_ce(x: torch.Tensor, w: torch.Tensor, tokens: torch.Tensor,
+                   block: int) -> torch.Tensor:
+    """:func:`chunked_ce` of the final hidden states ``x`` against the
+    tokens shifted left, the last position weighing 0."""
+    weights = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    weights[:, -1] = 0.0
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    return chunked_ce(x, w, targets, weights, block=block)
+
+
 # --------------------------------------------------------------------- #
 # the LM
 # --------------------------------------------------------------------- #
@@ -335,8 +376,8 @@ class LM:
         return params
 
     # ------------------------- forward ------------------------------ #
-    def _superblock_body(self, x32: torch.Tensor, aux, sb_params,
-                         compute_dtype) -> tuple[torch.Tensor, torch.Tensor | float]:
+    def _superblock_body(self, x32: torch.Tensor, aux, sb_params, compute_dtype,
+                         context=None) -> tuple[torch.Tensor, torch.Tensor | float]:
         """One superblock with a float32 residual carry: the stream rounds
         to the compute dtype at each superblock's entry, and the block's
         delta (exact in float32) is added to the float32 carry. ``aux``
@@ -345,34 +386,35 @@ class LM:
         xo = xb
         for spec, p in zip(self.cfg.superblock, sb_params):
             xo, a = _block_forward(xo, p, spec, self.cfg, impl=self.attn_impl,
-                                   block_k=self.attn_block_k)
+                                   block_k=self.attn_block_k, context=context)
             if spec.moe:
                 aux = aux + a
         if compute_dtype == torch.float32:
             return xo, aux
         return x32 + (xo.to(torch.float32) - xb.to(torch.float32)), aux
 
-    def trunk(self, params: Params, tokens: torch.Tensor,
-              compute_dtype=torch.bfloat16) -> tuple[torch.Tensor, torch.Tensor | float]:
+    def trunk(self, params: Params, tokens: torch.Tensor, compute_dtype=torch.bfloat16,
+              context: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor | float]:
         """tokens int [B,S] → (final-norm hidden [B,S,d], the MoE auxiliary
         loss summed over layers, float32; the Python float 0.0 without MoE
-        layers), as the reference's ``hidden``."""
+        layers), as the reference's ``hidden``. Cross layers attend to
+        ``context`` [B, Sc, d], as it is given (not cast)."""
         x32 = params["embed"][tokens.to(torch.int64)].to(compute_dtype).to(torch.float32)
         aux = 0.0
         remat = self.remat and torch.is_grad_enabled()
         for sb in params["blocks"]:
             if remat:
                 x32, aux = checkpoint(self._superblock_body, x32, aux, sb, compute_dtype,
-                                      use_reentrant=False, preserve_rng_state=False)
+                                      context, use_reentrant=False, preserve_rng_state=False)
             else:
-                x32, aux = self._superblock_body(x32, aux, sb, compute_dtype)
+                x32, aux = self._superblock_body(x32, aux, sb, compute_dtype, context)
         return common.norm(x32.to(compute_dtype), params["final_norm"], self.cfg.norm), aux
 
-    def hidden(self, params: Params, tokens: torch.Tensor,
-               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    def hidden(self, params: Params, tokens: torch.Tensor, compute_dtype=torch.bfloat16,
+               context: torch.Tensor | None = None) -> torch.Tensor:
         """Trunk only: tokens int [B,S] → final-norm hidden [B,S,d], the
         auxiliary loss dropped (prefill and serving)."""
-        return self.trunk(params, tokens, compute_dtype)[0]
+        return self.trunk(params, tokens, compute_dtype, context)[0]
 
     def head_weight(self, params: Params) -> torch.Tensor:
         """[d, V] output-projection weight (tied or dedicated)."""
@@ -386,22 +428,19 @@ class LM:
             logits = logits + params["lm_head"]["b"].to(x.dtype)
         return logits
 
-    def forward(self, params: Params, tokens: torch.Tensor,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    def forward(self, params: Params, tokens: torch.Tensor, compute_dtype=torch.bfloat16,
+                context: torch.Tensor | None = None) -> torch.Tensor:
         """tokens int [B,S] → logits [B,S,V] in the compute dtype."""
-        return self._head(params, self.hidden(params, tokens, compute_dtype))
+        return self._head(params, self.hidden(params, tokens, compute_dtype, context))
 
     def loss(self, params: Params, tokens: torch.Tensor, compute_dtype=torch.bfloat16,
-             aux_weight: float = 0.01) -> torch.Tensor:
+             aux_weight: float = 0.01, context: torch.Tensor | None = None) -> torch.Tensor:
         """Next-token CE through :func:`chunked_ce` (the full logits are
         never held), plus ``aux_weight`` times the MoE auxiliary loss (0
         without MoE layers): the targets are the tokens shifted left, the
         last position weighs 0."""
-        x, aux = self.trunk(params, tokens, compute_dtype)
-        weights = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
-        weights[:, -1] = 0.0
-        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
-        nll = chunked_ce(x, self.head_weight(params), targets, weights, block=self.ce_block)
+        x, aux = self.trunk(params, tokens, compute_dtype, context)
+        nll = _next_token_ce(x, self.head_weight(params), tokens, self.ce_block)
         return nll + aux_weight * aux if torch.is_tensor(aux) else nll
 
     # ------------------------- serving ------------------------------ #
@@ -413,6 +452,26 @@ class LM:
              for spec in self.cfg.superblock]
             for _ in range(self.cfg.n_superblocks)
         ]
+
+    @torch.no_grad()
+    def fill_context_caches(self, params: Params, state: list,
+                            context: torch.Tensor) -> list:
+        """Write every cross layer's k and v of ``context`` [B, Sc, d] into
+        its ``ctx_kv`` cache in place, cast to the cache's dtype: the
+        once-a-request half of prefill. ``Sc`` must be the cache's length
+        (``vision_tokens`` or ``encoder_frames``). Returns ``state``."""
+        for sb_params, sb_cache in zip(params["blocks"], state):
+            for spec, p, c in zip(self.cfg.superblock, sb_params, sb_cache):
+                if not _is_cross(spec):
+                    continue
+                k, v = attention.context_kv(context, p["attn"], self.cfg)
+                if k.shape != c["ctx_kv"]["k"].shape:
+                    raise ValueError(
+                        f"context of {tuple(context.shape)} gives k of {tuple(k.shape)}; the "
+                        f"decode state's ctx_kv is {tuple(c['ctx_kv']['k'].shape)}")
+                c["ctx_kv"]["k"].copy_(k)
+                c["ctx_kv"]["v"].copy_(v)
+        return state
 
     def decode_step(self, params: Params, token: torch.Tensor, state: list, pos: int,
                     compute_dtype=torch.bfloat16) -> tuple[torch.Tensor, list]:
@@ -432,3 +491,89 @@ class LM:
             new_state.append(new_caches)
         x = common.norm(x, params["final_norm"], cfg.norm)
         return self._head(params, x)[:, 0], new_state
+
+
+# --------------------------------------------------------------------- #
+# the encoder-decoder (whisper)
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(eq=False)
+class EncDec:
+    """Whisper-style encoder-decoder. The encoder reads the (stub) frame
+    embeddings [B, frames, d_model], as the reference's (the conv frontend
+    is out of its scope); ``self.decoder`` is an :class:`LM` whose cross
+    layers attend to the encoder's output.
+
+    Its parameters are the decoder's plus ``"encoder": {"blocks"
+    [n_encoder_superblocks][spec], "pos_embed" [encoder_frames, d],
+    "final_norm"}``. The encoder carries its stream in the compute dtype
+    (no float32 carry) and runs each superblock under a checkpoint with
+    ``remat`` while autograd records, as the reference's. Serving decodes
+    through ``self.decoder`` (``train/steps.py::make_serve_step``) after
+    ``decoder.fill_context_caches`` with the encoder's output."""
+
+    cfg: ModelConfig
+    remat: bool = True
+    attn_impl: str = "chunked"
+    attn_block_k: int = 1024
+    ce_block: int = 512
+    device: torch.device | str = "cuda"
+
+    def __post_init__(self):
+        for spec in self.cfg.encoder_superblock:
+            _check_spec(spec)
+            if _is_cross(spec):
+                raise ValueError(f"encoder layer {spec}: the encoder has no context")
+        self.decoder = LM(self.cfg, remat=self.remat, attn_impl=self.attn_impl,
+                          attn_block_k=self.attn_block_k, ce_block=self.ce_block,
+                          device=self.device)
+        self.device = self.decoder.device
+
+    def init(self, generator: torch.Generator | None = None) -> Params:
+        """The decoder's parameters (``LM.init``), then the encoder's
+        blocks, its ``pos_embed`` (``normal · 0.02``) and final norm."""
+        cfg, dev = self.cfg, self.device
+        params = self.decoder.init(generator)
+        params["encoder"] = {
+            "blocks": [
+                [_block_init(generator, spec, cfg, device=dev) for spec in cfg.encoder_superblock]
+                for _ in range(cfg.n_encoder_superblocks)
+            ],
+            "pos_embed": common.normal((cfg.encoder_frames, cfg.d_model), 0.02,
+                                       generator=generator, device=dev),
+            "final_norm": common.norm_init(cfg.d_model, cfg.norm, device=dev),
+        }
+        return params
+
+    def _encoder_body(self, x: torch.Tensor, sb_params) -> torch.Tensor:
+        for spec, p in zip(self.cfg.encoder_superblock, sb_params):
+            x, _ = _block_forward(x, p, spec, self.cfg, impl=self.attn_impl,
+                                  block_k=self.attn_block_k)
+        return x
+
+    def encode(self, params: Params, frames: torch.Tensor,
+               compute_dtype=torch.bfloat16) -> torch.Tensor:
+        """frames [B, T, d] → the encoder's final-norm states [B, T, d] in
+        the compute dtype: frames plus the first T rows of ``pos_embed``,
+        cast, then the encoder superblocks."""
+        enc = params["encoder"]
+        x = (frames + enc["pos_embed"][:frames.shape[1]]).to(compute_dtype)
+        remat = self.remat and torch.is_grad_enabled()
+        for sb in enc["blocks"]:
+            x = (checkpoint(self._encoder_body, x, sb, use_reentrant=False,
+                            preserve_rng_state=False) if remat else self._encoder_body(x, sb))
+        return common.norm(x, enc["final_norm"], self.cfg.norm)
+
+    def forward(self, params: Params, tokens: torch.Tensor, frames: torch.Tensor,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+        """tokens int [B, S], frames [B, T, d] → logits [B, S, V]."""
+        enc = self.encode(params, frames, compute_dtype)
+        return self.decoder.forward(params, tokens, compute_dtype, context=enc)
+
+    def loss(self, params: Params, tokens: torch.Tensor, frames: torch.Tensor,
+             compute_dtype=torch.bfloat16) -> torch.Tensor:
+        """Next-token CE of the decoder over the encoded frames, as the
+        reference's: no auxiliary term, and ``chunked_ce``'s default block
+        (not ``ce_block``)."""
+        enc = self.encode(params, frames, compute_dtype)
+        x, _ = self.decoder.trunk(params, tokens, compute_dtype, context=enc)
+        return _next_token_ce(x, self.decoder.head_weight(params), tokens, 512)

@@ -16,6 +16,10 @@ the position mask hides what the slot's last request wrote. The reference
 engine keeps those states across requests, so a request's tokens there
 depend on the slot's last request (a fault of the reference, ROADMAP
 queue 3), which the port does not copy.
+
+A vision LM's cross layers attend to the decode state's ``ctx_kv``
+caches, which stay zero: the reference's engine never calls
+``fill_context_caches`` (ROADMAP queue 3), and neither does this one.
 """
 
 from __future__ import annotations

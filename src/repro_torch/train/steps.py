@@ -8,14 +8,30 @@ The train steps work in place: ``train_step(params_or_model, opt_state,
 batch) → metrics`` updates the parameters and ``opt_state`` and returns
 ``loss``, ``grad_norm`` and ``lr`` as device tensors, and nothing in the
 step waits for the device.
+
+A language model's batch is the reference's dict:
+    tokens  int  [B, S]                        (always)
+    frames  f32  [B, frames, d_model]          (EncDec: the stub frontend)
+    vision  f32  [B, vision_tokens, d_model]   (LM: the cross layers' context)
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import lm as lm_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.tree import leaves, tree_map
+
+
+def _batch_keys(model) -> set:
+    return {"tokens", "frames"} if isinstance(model, lm_lib.EncDec) else {"tokens", "vision"}
+
+
+def _model_loss(model, params, batch: dict) -> torch.Tensor:
+    if isinstance(model, lm_lib.EncDec):
+        return model.loss(params, batch["tokens"], batch["frames"])
+    return model.loss(params, batch["tokens"], context=batch.get("vision"))
 
 
 def value_and_grad(loss_fn, model, batch: dict):
@@ -41,16 +57,18 @@ def trainable(params):
 
 
 def make_train_step(model, opt_cfg: opt_lib.AdamWConfig, microbatches: int = 1):
-    """The LM's train step over ``{"tokens": int [B, S]}`` batches.
+    """The train step of an ``LM`` or ``EncDec`` over the batches of the
+    module's docstring (``frames`` for an ``EncDec``, ``vision`` optional
+    for an ``LM``; any other key raises).
 
     ``train_step(params, opt_state, batch) → metrics``: ``model.loss``
     (with the MoE auxiliary loss, as the reference's), its backward,
     global-norm clipping and AdamW on ``params`` (made :func:`trainable`)
     and ``opt_state``, in place.
 
-    ``microbatches > 1`` splits the batch on its leading axis into equal
-    consecutive parts and accumulates the float32 gradient in the
-    parameters' ``.grad`` as ``acc + g / microbatches`` (each part's
+    ``microbatches > 1`` splits every array of the batch on its leading
+    axis into equal consecutive parts and accumulates the float32 gradient
+    in the parameters' ``.grad`` as ``acc + g / microbatches`` (each part's
     backward runs on its loss over ``microbatches``; for a power of two
     that scaling is exact, so the sum is the reference's), with no
     accumulator of its own. The loss is the mean of the parts' losses.
@@ -59,26 +77,29 @@ def make_train_step(model, opt_cfg: opt_lib.AdamWConfig, microbatches: int = 1):
     if microbatches < 1:
         raise ValueError(f"microbatches must be ≥ 1, got {microbatches}")
 
+    keys = _batch_keys(model)
+
     def train_step(params, opt_state: dict, batch: dict) -> dict:
-        extra = sorted(set(batch) - {"tokens"})
+        extra = sorted(set(batch) - keys)
         if extra:
-            raise NotImplementedError(
-                f"batch keys {extra}: the port's LM takes tokens only; the audio and vision "
-                "families come with cross-attention (ROADMAP queue 1 item 10, slice 18)")
+            raise ValueError(f"batch keys {extra}: {type(model).__name__}'s batches hold "
+                             f"{sorted(keys)}")
         tokens = batch["tokens"]
-        if tokens.shape[0] % microbatches:
-            raise ValueError(f"batch of {tokens.shape[0]} rows does not split into "
-                             f"{microbatches} microbatches")
+        rows = {k: v.shape[0] for k, v in batch.items()}
+        if tokens.shape[0] % microbatches or len(set(rows.values())) != 1:
+            raise ValueError(f"batch rows {rows} do not split into {microbatches} microbatches "
+                             "alike")
         for p in leaves(trainable(params)):
             p.grad = None
         if microbatches == 1:
-            loss = model.loss(params, tokens)
+            loss = _model_loss(model, params, batch)
             loss.backward()
             loss = loss.detach()
         else:
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            for micro in tokens.chunk(microbatches):
-                part = model.loss(params, micro)
+            parts = {k: v.chunk(microbatches) for k, v in batch.items()}
+            for i in range(microbatches):
+                part = _model_loss(model, params, {k: v[i] for k, v in parts.items()})
                 (part / microbatches).backward()
                 loss = loss + part.detach() / microbatches
         grads = tree_map(lambda p: p.grad, params)
@@ -122,22 +143,29 @@ def make_prefill_step(model):
     auxiliary loss is dropped, as the reference drops it.
 
     ``prefill_step(params, batch) → logits [B, V]`` over ``batch["tokens"]``
-    int [B, S], without autograd."""
+    int [B, S], without autograd: an ``EncDec`` encodes ``batch["frames"]``
+    first, an ``LM`` passes ``batch.get("vision")`` to its cross layers."""
 
     @torch.no_grad()
     def prefill_step(params, batch: dict, compute_dtype=torch.bfloat16) -> torch.Tensor:
-        x = model.hidden(params, batch["tokens"], compute_dtype)
-        return x[:, -1] @ model.head_weight(params).to(x.dtype)
+        if isinstance(model, lm_lib.EncDec):
+            decoder, context = model.decoder, model.encode(params, batch["frames"], compute_dtype)
+        else:
+            decoder, context = model, batch.get("vision")
+        x = decoder.hidden(params, batch["tokens"], compute_dtype, context=context)
+        return x[:, -1] @ decoder.head_weight(params).to(x.dtype)
 
     return prefill_step
 
 
 def make_serve_step(model):
     """``serve_step(params, state, token, pos) → (logits, state)``: one
-    decode step, without autograd (MoE layers drop their auxiliary loss)."""
+    decode step, without autograd (MoE layers drop their auxiliary loss),
+    through ``model.decoder`` for an ``EncDec``."""
+    decoder = model.decoder if isinstance(model, lm_lib.EncDec) else model
 
     @torch.no_grad()
     def serve_step(params, state, token, pos: int):
-        return model.decode_step(params, token, state, pos)
+        return decoder.decode_step(params, token, state, pos)
 
     return serve_step

@@ -26,7 +26,7 @@ process tracer is on (:mod:`repro_torch.obs`), each save's snapshot is the
 span ``train/checkpoint`` and the wait for its write at the end of
 :meth:`Trainer.run` ``train/checkpoint_wait``. The mesh and sharding
 arguments come with the parameter rules of ``distributed/sharding.py``
-(ROADMAP queue 1 item 10) and raise if given.
+(ROADMAP queue 1 item 10, slice 19) and raise if given.
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ class Trainer:
         if mesh is not None or shardings is not None:
             raise NotImplementedError(
                 "Trainer(mesh=..., shardings=...): sharded training comes with the parameter "
-                "rules of distributed/sharding.py (ROADMAP queue 1 item 10)")
+                "rules of distributed/sharding.py (ROADMAP queue 1 item 10, slice 19)")
         self.model = model
         self.opt_cfg = opt_cfg
         self.cfg = cfg

@@ -45,6 +45,7 @@ from repro_torch.kernels.fused_xform import ops as fxops
 from repro_torch.kernels.fused_xform import ref as fxref
 from repro_torch.kernels.vocab import ops as vops
 from repro_torch.kernels.vocab import ref as vref
+from repro_torch.launch import specs as tspecs
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.models import lm as tlm
 from repro_torch.models import mlp as tmlp
@@ -1626,6 +1627,78 @@ def test_ssm_forward_equals_decode_chain_on_card(cuda, kind):
         ys.append(y_t)
     tol = {"mamba": 2e-4, "mlstm": 5e-4, "slstm": 1e-5}[kind]
     torch.testing.assert_close(y, torch.cat(ys, 1), atol=tol, rtol=0)
+
+
+# --------------------------------------------------------------------- #
+# cross-attention on the card, against the plain version and the CPU path
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("shape_q,shape_kv,causal,strided", [
+    ((4, 64, 4096, 128), (4, 8, 4096, 128), True, False),
+    ((4, 64, 4096, 128), (4, 8, 1024, 128), False, True),
+    ((16, 12, 256, 64), (16, 12, 256, 64), True, False)],
+    ids=["llama_vision_self", "llama_vision_cross_strided", "whisper_decoder_self"])
+def test_flash_kernel_at_the_cross_prefill_shapes(cuda, shape_q, shape_kv, causal, strided):
+    """The bf16 wgmma route at llama-3.2-vision's self-attention (64 query
+    heads over 8 kv heads, D 128, causal) and cross-attention shapes (4096
+    queries over 1024 keys, not causal: each query tile walks 8 kv tiles),
+    the latter with k and v as attention.context_kv hands them over ([B, S,
+    Hkv, D] viewed as [B, Hkv, S, D], read through the tensor maps'
+    strides), and at whisper-small's decoder self-attention (16 × 256, 12
+    heads, D 64), against ref.mha at the reference's 2e-2, one launch."""
+    q, k, v = _qkv(shape_q, shape_kv, torch.bfloat16, 22, cuda)
+    if strided:
+        k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (k, v))
+        assert not k.is_contiguous() and k.stride(2) == shape_kv[1] * shape_kv[3]
+    assert fops.route(q.dtype, q.shape[-1]) == "wgmma"
+    fops.KERNEL.launches = 0
+    got = fops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fops.KERNEL.launches == 1
+    for b in range(q.shape[0]):
+        want = fref.mha(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal)
+        torch.testing.assert_close(got[b:b + 1].float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-small"])
+def test_cross_smoke_on_card_matches_cpu(cuda, arch):
+    """SMOKE of the vision LM and of the encoder-decoder, float32 (TF32
+    off), the card on the flash route (every layer here: 64 tokens, 16
+    patches or 32 frames) and the CPU on the chunked route from the same
+    weights and stub inputs: the forward's logits within 1e-4 of their
+    largest value, then 8 decode steps after fill_context_caches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tconfigs.get_smoke(arch)
+    cpu = tspecs.build_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    card = tspecs.build_model(cfg, attn_impl="flash", device=cuda)
+    card_params = ttree.tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64), dtype=np.int32))
+    length = cfg.encoder_frames if cfg.family == "audio" else cfg.vision_tokens
+    stub = torch.from_numpy(rng.standard_normal((2, length, cfg.d_model)).astype(np.float32) * 0.1)
+    f32 = torch.float32
+    with torch.no_grad():
+        if cfg.family == "audio":
+            cpu_dec, card_dec = cpu.decoder, card.decoder
+            cpu_ctx = cpu.encode(params, stub, f32)
+            card_ctx = card.encode(card_params, stub.to(cuda), f32)
+        else:
+            cpu_dec, card_dec, cpu_ctx, card_ctx = cpu, card, stub, stub.to(cuda)
+        want = cpu_dec.forward(params, tokens, f32, context=cpu_ctx)
+        fops.KERNEL.launches = 0
+        got = card_dec.forward(card_params, tokens.to(cuda), f32, context=card_ctx)
+        torch.cuda.synchronize()
+        assert fops.KERNEL.launches == cfg.n_layers
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        cs = cpu_dec.fill_context_caches(params, cpu_dec.init_decode_state(2, 8, dtype=f32),
+                                         cpu_ctx)
+        gs = card_dec.fill_context_caches(card_params,
+                                          card_dec.init_decode_state(2, 8, dtype=f32), card_ctx)
+        for pos in range(8):
+            w, cs = cpu_dec.decode_step(params, tokens[:, pos], cs, pos, compute_dtype=f32)
+            g, gs = card_dec.decode_step(card_params, tokens[:, pos].to(cuda), gs, pos,
+                                         compute_dtype=f32)
+            assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
 # --------------------------------------------------------------------- #

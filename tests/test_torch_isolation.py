@@ -148,6 +148,41 @@ print("LEAKED", leaked)
 """
 
 
+_RUN_CROSS_PORT_ONLY = """
+import sys
+import torch
+from repro_torch import configs
+from repro_torch.launch import specs
+from repro_torch.models import lm
+from repro_torch.train import steps
+
+# whisper-small SMOKE: a prefill on the flash route, the encoder's output
+# into the context caches, decode steps
+cfg = configs.get_smoke("whisper-small")
+model = specs.build_model(cfg, attn_impl="flash", device="cpu")
+params = model.init(torch.Generator().manual_seed(0))
+frames = torch.randn((2, cfg.encoder_frames, cfg.d_model), generator=torch.Generator().manual_seed(1))
+tokens = torch.zeros((2, 16), dtype=torch.int32)
+logits = steps.make_prefill_step(model)(params, {"tokens": tokens, "frames": frames})
+state = model.decoder.fill_context_caches(
+    params, model.decoder.init_decode_state(2, 8), model.encode(params, frames))
+for pos in range(3):
+    logits, state = steps.make_serve_step(model)(params, state, tokens[:, pos], pos)
+assert bool(torch.isfinite(logits).all())
+# llama-3.2-vision-90b SMOKE: the patches into the context caches, a decode step
+cfg = configs.get_smoke("llama-3.2-vision-90b")
+vlm = lm.LM(cfg, attn_impl="flash", device="cpu")
+params = vlm.init(torch.Generator().manual_seed(0))
+vision = torch.randn((1, cfg.vision_tokens, cfg.d_model), generator=torch.Generator().manual_seed(2))
+state = vlm.fill_context_caches(params, vlm.init_decode_state(1, 8), vision)
+assert all(bool(c["ctx_kv"]["k"].abs().sum() > 0) for sb in state for c in sb if "ctx_kv" in c)
+logits, state = vlm.decode_step(params, torch.zeros(1, dtype=torch.int32), state, 0)
+assert bool(torch.isfinite(logits).all())
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", leaked)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO / "src")
@@ -167,6 +202,17 @@ def test_runs_without_jax_or_repro_in_sys_modules():
     the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _RUN_PORT_ONLY], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300, check=True,
+    ).stdout
+    assert "LEAKED []" in out, out
+
+
+def test_cross_attention_runs_without_jax_or_repro_in_sys_modules():
+    """whisper-small SMOKE's prefill, context caches and decode steps, and
+    llama-3.2-vision-90b SMOKE's fill_context_caches and a decode step, in a
+    process that never imports JAX or the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _RUN_CROSS_PORT_ONLY], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=300, check=True,
     ).stdout
     assert "LEAKED []" in out, out

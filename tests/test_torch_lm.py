@@ -89,8 +89,8 @@ def test_configs_match_the_reference():
         t = getattr(__import__("repro_torch.configs.gemma_2b", fromlist=[name]), name)
         jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
         assert jd == td
-    with pytest.raises(KeyError, match="queue 1 item 10"):
-        tconfigs.get("whisper-small")
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get("whisper-large")
 
 
 def test_param_count_matches_the_reference():
@@ -112,11 +112,16 @@ def test_params_round_trip(smoke):
 
 
 def test_unported_layers_raise():
+    """A layer the port does not know raises; every attention kind of the
+    reference, cross included, builds."""
     cfg = dataclasses.replace(
         tconfigs.get_smoke("gemma-2b"),
-        superblock=(tcommon.LayerSpec(kind="attn", attn="cross", mlp="swiglu"),))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        superblock=(tcommon.LayerSpec(kind="attn", attn="sliding", mlp="swiglu"),))
+    with pytest.raises(ValueError, match="attn must be one of"):
         tlm.LM(cfg, device="cpu")
+    for attn in ("causal", "bidir", "cross"):
+        tlm.LM(dataclasses.replace(cfg, superblock=(tcommon.LayerSpec(attn=attn),)),
+               device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         tlm.LM(tconfigs.get_smoke("gemma-2b"), attn_impl="pallas", device="cpu")
 

@@ -217,9 +217,9 @@ def test_train_step_refuses_what_it_does_not_take():
     step = tsteps.make_train_step(model, topt.AdamWConfig(), microbatches=3)
     with pytest.raises(ValueError, match="microbatches"):
         step(params, topt.adamw_init(params), {"tokens": torch.zeros((4, 8), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="vision"):
+    with pytest.raises(ValueError, match="frames"):
         step(params, topt.adamw_init(params), {"tokens": torch.zeros((3, 8), dtype=torch.int32),
-                                               "vision": torch.zeros((3, 4, cfg.d_model))})
+                                               "frames": torch.zeros((3, 4, cfg.d_model))})
     with pytest.raises(ValueError, match="microbatches"):
         tsteps.make_train_step(model, topt.AdamWConfig(), microbatches=0)
 
@@ -489,8 +489,10 @@ def test_build_model():
     assert (model.remat, model.attn_impl, model.attn_block_k, model.ce_block) == \
         (False, "einsum", 64, 128)
     assert tspecs.build_model(cfg, device="cpu").remat is True
-    with pytest.raises(NotImplementedError, match="audio"):
-        tspecs.build_model(dataclasses.replace(cfg, family="audio"), device="cpu")
+    audio = tconfigs.get_smoke("whisper-small")
+    assert isinstance(tspecs.build_model(audio, device="cpu"), tlm.EncDec)
+    assert isinstance(tspecs.build_model(dataclasses.replace(audio, family="vlm"),
+                                         device="cpu"), tlm.LM)
 
 
 def test_preprocess_tokens_match_the_reference():
