@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernels,golden,main,sharded,stream,train,serve,e2e,lm_train,
-                                    zoo,cross,analysis]
+                                    zoo,cross,sharded_train,analysis]
                           [--out results.json]
     python3 chip_smoke.py --rehearse      # plumbing only, on the CPU
 
@@ -200,6 +200,26 @@ Phases, each of which passes or ends the run with a non-zero exit:
      prefill within 1e-3, and a bf16 decode is timed. Prints per model ms
      per prefill, tokens/s, busy share, launches, ms per decode step and
      the peak memory, with the card's name and power limit.
+  9d. sharded_train — qwen2-moe-a2.7b over mesh (2, 4) of ("data", "model"),
+     every position on the one card (bf16 compute, TF32 off). (a) A prefill
+     of 4 x 4096 Piper tokens at full width and depth under use_mesh: every
+     MoE layer takes the expert-parallel path (15 experts a rank); it must
+     launch flash_attention exactly 24 times; timed, profiled, with the
+     capacity drops per layer beside the dense route's; its first 2 layers
+     in float32 equal the dense path run per data shard within 1e-5
+     relative L2 (auxiliary loss 1e-6), with drops present. (b)
+     Trainer(mesh, param_shardings) at full width cut to 2 layers, 3 steps
+     of 4 x 4096 tokens under use_mesh, against the unsharded Trainer under
+     the same use_mesh from the same seeded init and batches (LM_SMOKE_TOL);
+     its peak memory at most 1.1 x the unsharded run's. (c)
+     compressed_psum_mean over (b)'s two data shards' first-step gradients:
+     within scale / 2 of the plain mean, the residual exact, the payload's
+     bytes against float32's. (d) qwen2-moe SMOKE at 2 layers: a
+     checkpoint written under (2, 4) (two steps, no use_mesh); Trainers on
+     (4, 2) and with no mesh resume it: each restored state equal to the
+     writer's bit for bit, the first resumed loss equal bit for bit, the
+     two continuations within LM_SMOKE_TOL. Prints ms, tokens/s, busy
+     share, peaks and ms per step, with the card's name and power limit.
   10. analysis — the port's static gate (python -m repro_torch.analysis
      --strict) in-process on the card: planlint, kernelcheck (the shape
      matrix's routes and launches on the card, the CUDA source audit, every
@@ -232,6 +252,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -419,6 +440,44 @@ CROSS_FLASH_LAUNCHES = {"llama-3.2-vision-90b": 10, "whisper-small": 12}
 CROSS_DECODE = {"prompts": 4, "prompt_len": 32}
 CROSS_REHEARSAL = {"prefill": (2, 128)}
 CROSS_KERNELS = ("flash_attention",)
+# The sharded_train phase: qwen2-moe-a2.7b over mesh SHARDED_TRAIN_MESH, every
+# position on the one card (NCCL refuses two ranks on one device, so a mesh
+# over cards is not exercised). (a) a prefill of SHARDED_TRAIN["prefill"]
+# Piper tokens at full width and depth under use_mesh: every MoE layer on the
+# expert-parallel path (60 experts, 15 a rank), bf16; its first
+# SHARDED_TRAIN_LAYERS layers in float32 against the dense path run per data
+# shard. (b) Trainer(mesh, shardings) at full width cut to
+# SHARDED_TRAIN_LAYERS layers, SHARDED_TRAIN["steps"] steps under use_mesh,
+# against the unsharded Trainer under the same use_mesh (LM_SMOKE_TOL), its
+# peak memory within SHARDED_TRAIN_PEAK of the unsharded run's. (c)
+# compressed_psum_mean over (b)'s two data shards' first-step gradients.
+# (d) at SMOKE width (the published capacity) and SHARDED_TRAIN_LAYERS
+# layers, a checkpoint written under SHARDED_TRAIN_MESH resumed under
+# SHARDED_TRAIN_RESUME_MESH and with no mesh (MoE's dense path, no use_mesh:
+# both continuations then start from one state and batch); the round trip of
+# a full-width state's checkpoint is the lm_train phase's. A rehearsal runs
+# SMOKE at SHARDED_TRAIN_REHEARSAL's sizes.
+SHARDED_TRAIN_ARCH = "qwen2-moe-a2.7b"
+SHARDED_TRAIN_MESH = ((2, 4), ("data", "model"))
+SHARDED_TRAIN_RESUME_MESH = ((4, 2), ("data", "model"))
+SHARDED_TRAIN_LAYERS = 2
+SHARDED_TRAIN = {"prefill": (4, 4096), "batch": 4, "seq": 4096, "steps": 3,
+                 "resume_at": 2, "resume_steps": 4}
+# A rehearsal trains one step in (b): at SMOKE's few elements a leaf, the
+# CPU's bf16 rounding (other at each batch split) flips AdamW's near-sign
+# update on more than LM_SMOKE_TOL's share of some leaf's elements after it.
+SHARDED_TRAIN_REHEARSAL = {"prefill": (4, 128), "batch": 4, "seq": 64, "steps": 1,
+                           "resume_at": 2, "resume_steps": 4}
+SHARDED_TRAIN_NOTE = ("every mesh position runs on the one card, one after another: times "
+                      "are of the one-card layout, not of a mesh over cards")
+SHARDED_TRAIN_PEAK = 1.10  # the sharded Trainer's peak against the unsharded one's
+# (a)'s float32 check, the EP path against the dense path per data shard:
+# relative L2 of the hidden states (only the order of float32 sums differs)
+# and the auxiliary loss, relative
+SHARDED_EP_F32_REL_L2 = 1e-5
+SHARDED_EP_AUX_REL = 1e-6
+# The sharded_train path's kernel: the flash prefill of (a)'s 24 layers.
+SHARDED_TRAIN_KERNELS = ("flash_attention",)
 # The kernels the analysis phase's audited routes launch at CRITEO: the fused
 # and bytes-in routes, the count plane, the use_kernels chain, and decode.
 ANALYSIS_KERNELS = ("decode_scan", "fused_genvocab", "fused_genvocab_slabs", "fused_transform",
@@ -1880,11 +1939,18 @@ class Smoke:
                   "card": self.smi, "note": SHARDED_NOTE}
         kernels = counters()
         launches = dict.fromkeys(kernels, 0)
+        threads = self.torch.get_num_threads()
+        if self.rehearse:
+            # a rehearsal's thousands of tiny chunk ops run fastest on one
+            # thread (41 s against 75 s on eight), and the test suite runs
+            # this rehearsal beside its other workers
+            self.torch.set_num_threads(1)
         try:
             self._row_parallel(data, tag, vocab_range, kernels, launches, result)
             self._column_parallel(data, tag, vocab_range, kernels, launches, result)
             return launches
         finally:
+            self.torch.set_num_threads(threads)
             result["launches"] = launches
             emit(result)
 
@@ -4299,6 +4365,371 @@ class Smoke:
                f"cross {cfg.name} prefill in float32: flash and chunked differ by "
                f"{stats['f32_vs_chunked_rel_l2']} > {ZOO_F32_REL_L2}")
 
+    # -- phase 9d ------------------------------------------------------- #
+    def sharded_train(self, data) -> dict:
+        """qwen2-moe-a2.7b trained and served over a mesh on the one card:
+        (a) the expert-parallel prefill, (b) the sharded Trainer against
+        the unsharded one, (c) the int8 compressed mean of (b)'s shards'
+        gradients, (d) the elastic resume. Returns {prefill tag: kernel →
+        launches}. Prints what it measured, also when a check fails."""
+        result = {"phase": "sharded_train", "nvidia_smi": self.smi}
+        try:
+            return self._sharded_train(data, result)
+        finally:
+            emit(result)
+
+    def _train_mesh(self, mesh):
+        from repro_torch.launch import mesh as mesh_lib
+
+        shape, axes = mesh
+        return mesh_lib.make_mesh(shape, axes, devices=self.dev.type)
+
+    def _sharded_train(self, data, result: dict) -> dict:
+        torch = self.torch
+        from repro_torch import configs
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t_phase = time.perf_counter()
+        sparse = self._piper_tokens(data)
+        arch = SHARDED_TRAIN_ARCH
+        cfg = configs.get(arch)
+        # SMOKE at the published capacity, so that choices drop
+        smoke = dataclasses.replace(configs.get_smoke(arch), moe=dataclasses.replace(
+            configs.get_smoke(arch).moe, capacity_factor=cfg.moe.capacity_factor))
+        if self.rehearse:
+            cfg = smoke
+        size = SHARDED_TRAIN_REHEARSAL if self.rehearse else SHARDED_TRAIN
+        mesh = self._train_mesh(SHARDED_TRAIN_MESH)
+        result.update(config=cfg.name, mesh=dict(mesh.shape), note=SHARDED_TRAIN_NOTE)
+        batch, seq = size["prefill"]
+        # tagged as the zoo phase's prefill of the same shape, whose flash
+        # record it shares
+        launches = {f"{ZOO_MODELS[arch]}-b{batch}s{seq}": self._ep_prefill(cfg, sparse, mesh, size,
+                                                                            result)}
+        self._free()
+        cut = dataclasses.replace(cfg, n_superblocks=SHARDED_TRAIN_LAYERS)
+        result["train_config"] = {"layers": cut.n_layers, "params": cut.param_count(),
+                                  "reduced": f"depth {cfg.n_layers} -> {cut.n_layers}"}
+        first_grads = self._ep_train(cut, sparse, mesh, size, result)
+        self._compressed_mean(first_grads, result)
+        del first_grads
+        self._free()
+        self._elastic_resume(dataclasses.replace(smoke, n_superblocks=SHARDED_TRAIN_LAYERS),
+                             sparse, mesh, size, result)
+        self._free()
+        result["seconds"] = time.perf_counter() - t_phase
+        return launches
+
+    def _ep_prefill(self, cfg, sparse, mesh, size: dict, result: dict) -> dict:
+        """(a): the flash-route prefill at full width and depth under
+        use_mesh (launches counted, timed, profiled, drops per layer against
+        the dense route), then its first layers in float32 against the dense
+        path per data shard. Returns the prefill's launches by kernel."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.data import loader
+        from repro_torch.distributed import sharding
+        from repro_torch.models import lm
+        from repro_torch.train import steps
+
+        kernels = counters()
+        rec = result["ep_prefill"] = {"layers": cfg.n_layers, "params": cfg.param_count()}
+        t0 = time.perf_counter()
+        model = lm.LM(cfg, attn_impl="flash", device=dev)
+        params = model.init(torch.Generator(dev).manual_seed(0))
+        self.sync()
+        rec["init_s"] = time.perf_counter() - t0
+        prefill = steps.make_prefill_step(model)
+        batch, seq = size["prefill"]
+        tokens = torch.from_numpy(
+            loader.PiperTokenBatches(sparse, cfg.vocab_size, batch, seq)(0)["tokens"]).to(dev)
+
+        def ep_prefill():
+            with sharding.use_mesh(mesh):
+                return prefill(params, {"tokens": tokens})
+
+        n_flash = cfg.n_layers
+        with self._routing_spy() as ep_routes:
+            reset_counters(kernels)
+            logits = ep_prefill()
+            self.sync()
+        got = {k: v.launches for k, v in kernels.items()}
+        want = dict.fromkeys(kernels, 0)
+        want["flash_attention"] = 0 if self.rehearse else n_flash
+        rec["launches"] = {k: v for k, v in got.items() if v}
+        expect(got == want, f"sharded_train EP prefill: launched {rec['launches']}, expected "
+               f"{n_flash} flash_attention")
+        expect(tuple(logits.shape) == (batch, cfg.vocab_size) and
+               bool(torch.isfinite(logits).all()), "sharded_train EP prefill: logits of shape "
+               f"{tuple(logits.shape)}, or not finite")
+        n_data = mesh.shape["data"]
+        expect(len(ep_routes) == cfg.n_layers * n_data, f"sharded_train EP prefill: "
+               f"{len(ep_routes)} routings, expected one per layer and data shard")
+        rec["drops_per_layer_ep"] = [
+            sum(int((~r["keep"]).sum()) for r in ep_routes[i * n_data:(i + 1) * n_data])
+            for i in range(cfg.n_layers)]
+        del ep_routes
+        with self._routing_spy() as dense_routes, torch.no_grad():
+            prefill(params, {"tokens": tokens})
+            rec["drops_per_layer_dense"] = [int((~r["keep"]).sum()) for r in dense_routes]
+        del dense_routes
+        secs = self.wall_seconds(ep_prefill, n=2)
+        med = statistics.median(secs)
+        rec.update(batch=batch, seq=seq, experts_per_rank=cfg.moe.n_experts // mesh.shape["model"],
+                   seconds=secs, ms_per_call=med * 1e3, tokens_per_s=batch * seq / med)
+        prof = self.profile(ep_prefill)
+        if prof is not None:
+            busy = sum(r["ms"] for r in prof)
+            rec.update(device_busy_share=busy / rec["ms_per_call"],
+                       profiled_call={"device_ms": busy, "top": prof[:8]})
+        if not self.rehearse:
+            rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        del logits
+        # float32, the first layers: the EP path against the dense path run
+        # on each data shard's rows
+        cut = dataclasses.replace(cfg, n_superblocks=SHARDED_TRAIN_LAYERS)
+        head = lm.LM(cut, attn_impl="flash", device=dev)
+        sub = dict(params, blocks=params["blocks"][:SHARDED_TRAIN_LAYERS])
+        with torch.no_grad():
+            with sharding.use_mesh(mesh), self._routing_spy() as routes:
+                x_ep, aux_ep = head.trunk(sub, tokens, torch.float32)
+            parts = [head.trunk(sub, t, torch.float32) for t in tokens.chunk(n_data)]
+        x_dense = torch.cat([x for x, _ in parts])
+        aux_dense = torch.stack([a for _, a in parts]).mean()
+        f32 = {"layers": SHARDED_TRAIN_LAYERS, "rel_l2": self._rel_l2(x_ep, x_dense),
+               "aux_ep": float(aux_ep), "aux_dense_mean": float(aux_dense),
+               "aux_rel_err": abs(float(aux_ep) / float(aux_dense) - 1),
+               "drops": sum(int((~r["keep"]).sum()) for r in routes)}
+        rec["f32_vs_dense_per_shard"] = f32
+        del routes, parts, x_ep, x_dense
+        expect(f32["drops"] > 0, "sharded_train EP float32 check: no capacity drop to check")
+        expect(f32["rel_l2"] <= SHARDED_EP_F32_REL_L2 and f32["aux_rel_err"] <= SHARDED_EP_AUX_REL,
+               f"sharded_train EP float32: {f32} beyond {SHARDED_EP_F32_REL_L2} / "
+               f"{SHARDED_EP_AUX_REL}")
+        return got
+
+    def _sharded_trainer(self, cfg, sparse, size: dict, root: Path, mesh=None, steps=None,
+                         save: bool = True):
+        """A Trainer of ``cfg`` (remat, the chunked route, LM_LR) over
+        Piper's tokens, checkpointing at its last step only (not at all
+        without ``save``: (d) holds the checkpoints), sharded by
+        param_shardings over ``mesh`` when one is given."""
+        from repro_torch.data import loader
+        from repro_torch.distributed import sharding
+        from repro_torch.launch import specs
+        from repro_torch.models import lm
+        from repro_torch.train import optimizer, trainer
+
+        tcfg = trainer.TrainerConfig(total_steps=steps or size["steps"], ckpt_dir=str(root),
+                                     ckpt_every=1 << 30, keep_checkpoints=1,
+                                     handle_signals=False)
+        batches = loader.PiperTokenBatches(sparse, cfg.vocab_size, size["batch"], size["seq"])
+        opt_cfg = optimizer.AdamWConfig(schedule=optimizer.constant_schedule(LM_LR))
+        shardings = None
+        if mesh is not None:
+            skeleton = lm.LM(cfg, device="meta").init()
+            shardings = (sharding.param_shardings(skeleton, mesh),
+                         sharding.param_shardings(optimizer.adamw_init(skeleton), mesh),
+                         sharding.NamedSharding(mesh, sharding.batch_spec(mesh)))
+        t = trainer.Trainer(specs.build_model(cfg, device=self.dev), opt_cfg, tcfg, batches,
+                            mesh=mesh, shardings=shardings)
+        if not save:
+            t._save = lambda *args, **kw: None
+        return t
+
+    def _agreement(self, got: dict, want: dict, what: str) -> dict:
+        """Two runs' losses, grad norms and final weights held to
+        LM_SMOKE_TOL (``got`` and ``want``: {"losses", "grad_norms",
+        "params"})."""
+        from repro_torch.train.tree import leaves, leaves_with_paths
+
+        tol = LM_SMOKE_TOL
+        rec = {"tolerance": tol, "losses": got["losses"], "losses_want": want["losses"],
+               "grad_norms": got["grad_norms"], "grad_norms_want": want["grad_norms"],
+               "loss_rel_err": [abs(a / b - 1) for a, b in zip(got["losses"], want["losses"])],
+               "grad_norm_rel_err": [abs(a / b - 1) for a, b in zip(got["grad_norms"],
+                                                                    want["grad_norms"])]}
+        worst, failures = (None, -1.0), []
+        for (path, a), b in zip(leaves_with_paths(got["params"]), leaves(want["params"])):
+            d = (a.detach() - b.detach().to(a.device)).abs()
+            flip = float((d > LM_LR).float().mean())
+            if flip > worst[1]:
+                worst = ("/".join(path), flip, float(d.max()))
+            if flip > tol["flip_frac"]:
+                failures.append(f"{'/'.join(path)}: {flip}")
+        rec["worst_weight"] = {"leaf": worst[0], "flip_frac": worst[1], "max_abs": worst[2]}
+        expect(len(got["losses"]) == len(want["losses"]) > 0, f"{what}: a loss is missing")
+        expect(max(rec["loss_rel_err"]) <= tol["loss_rel"]
+               and max(rec["grad_norm_rel_err"]) <= tol["grad_norm_rel"] and not failures,
+               f"{what}: beyond {tol}: loss {rec['loss_rel_err']}, grad_norm "
+               f"{rec['grad_norm_rel_err']}, weights " + "; ".join(failures))
+        return rec
+
+    def _ep_train(self, cfg, sparse, mesh, size: dict, result: dict) -> list:
+        """(b): the unsharded Trainer, then Trainer(mesh, shardings), each
+        from the same seeded init and batches under use_mesh (EP with
+        autograd), held to each other; peaks and ms per step. Returns the
+        two data shards' first-step gradients of (c), each a list over the
+        parameters."""
+        torch = self.torch
+        from repro_torch.distributed import sharding
+        from repro_torch.train.tree import tree_map
+
+        root = ROOT / "build" / "sharded_train"
+        shutil.rmtree(root, ignore_errors=True)
+        runs = {}
+        for name, m in (("unsharded", None), ("sharded", mesh)):
+            self._free()
+            t = self._sharded_trainer(cfg, sparse, size, root / name, mesh=m, save=False)
+            metrics = self._spy_steps(t)
+            with sharding.use_mesh(mesh):
+                out = t.run(0)
+            self.sync()
+            runs[name] = {"losses": out["losses"],
+                          "grad_norms": [float(x["grad_norm"]) for x in metrics],
+                          "params": out["params"], "step_ms": [x * 1e3 for x in out["step_times"]],
+                          "peak_memory_bytes": (None if self.rehearse
+                                                else torch.cuda.max_memory_allocated())}
+            if m is None:  # off the card while the sharded run measures its peak
+                runs[name]["params"] = tree_map(lambda x: x.detach().cpu(), out["params"])
+            del t, out, metrics
+        sharded, plain = runs["sharded"], runs["unsharded"]
+        rec = self._agreement(sharded, plain, "sharded_train (b)")
+        rec.update({f"{k}_{name}": runs[name][k] for name in runs
+                    for k in ("step_ms", "peak_memory_bytes")})
+        result["trainer"] = rec
+        if not self.rehearse:
+            expect(sharded["peak_memory_bytes"] <= SHARDED_TRAIN_PEAK * plain["peak_memory_bytes"],
+                   f"sharded_train (b): the sharded Trainer's peak {sharded['peak_memory_bytes']} "
+                   f"is over {SHARDED_TRAIN_PEAK} x the unsharded {plain['peak_memory_bytes']}")
+        del runs, sharded, plain
+        return self._shard_gradients(cfg, sparse, mesh, size)
+
+    def _shard_gradients(self, cfg, sparse, mesh, size: dict) -> list:
+        """Each data shard's gradient at the first step (the seeded init,
+        batch 0): of the loss over its rows alone, as a data-parallel rank
+        computes it (the dense MoE path over one shard's rows is the
+        expert-parallel path's). Their mean is the step's gradient."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.data import loader
+        from repro_torch.launch import specs
+        from repro_torch.train import steps
+        from repro_torch.train.tree import leaves
+
+        self._free()
+        model = specs.build_model(cfg, device=dev)
+        tree = steps.trainable(model.init(torch.Generator(dev).manual_seed(0)))
+        tokens = torch.from_numpy(loader.PiperTokenBatches(
+            sparse, cfg.vocab_size, size["batch"], size["seq"])(0)["tokens"]).to(dev)
+        return [list(torch.autograd.grad(model.loss(tree, part), leaves(tree)))
+                for part in tokens.chunk(mesh.shape["data"])]
+
+    def _compressed_mean(self, grads: list, result: dict) -> None:
+        """(c): compressed_psum_mean over the shards' gradients, stacked
+        [2, ...] leaf by leaf: per element within scale / 2 (and float32's
+        rounding of the two means) of the plain mean, the residual y − Q⁻¹(Q(y))
+        exactly; payload bytes against float32's."""
+        torch = self.torch
+        from repro_torch.distributed import compression
+
+        stacked = []
+        while grads[0]:
+            stacked.append(torch.stack([g.pop(0) for g in grads]))
+        err = compression.error_state_init(stacked)
+        self.sync()
+        t0 = time.perf_counter()
+        mean, new_err = compression.compressed_psum_mean(stacked, err)
+        self.sync()
+        rec = {"leaves": len(stacked), "elements": sum(s[0].numel() for s in stacked),
+               "shards": len(grads), "seconds": time.perf_counter() - t0}
+        worst, exact = 0.0, True
+        eps = float(torch.finfo(torch.float32).eps)
+        for y, m, e in zip(stacked, mean, new_err):
+            amax = y.abs().max()
+            scale = torch.clamp(amax, min=1e-12) / 127.0
+            q = torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8)
+            exact &= bool(torch.equal(e, y - q.to(torch.float32) * scale))
+            gap = float((m - y.mean(0)).abs().max())
+            worst = max(worst, gap / float(scale))
+            expect(gap <= float(scale) / 2 + 4 * eps * float(amax),
+                   f"sharded_train (c): a compressed mean is {gap} from the plain mean, over "
+                   f"scale / 2 = {float(scale) / 2}")
+        rec.update(worst_gap_over_scale=worst, residual_exact=exact,
+                   payload_bytes=rec["elements"] + 4 * rec["leaves"],
+                   f32_bytes=4 * rec["elements"])
+        rec["payload_ratio"] = rec["payload_bytes"] / rec["f32_bytes"]
+        result["compressed_mean"] = rec
+        expect(exact, "sharded_train (c): a residual is not y - dequant exactly")
+
+    def _elastic_resume(self, cfg, sparse, mesh, size: dict, result: dict) -> None:
+        """(d): two steps of ``cfg`` under ``mesh`` with a checkpoint (no
+        use_mesh: the MoE layers take the dense path); Trainers on
+        SHARDED_TRAIN_RESUME_MESH and with no mesh resume it: each
+        restored state equal to the writer's bit for bit, their first
+        resumed step's loss equal bit for bit, the continuations held to
+        each other at LM_SMOKE_TOL (and whether they are equal bit for bit
+        recorded)."""
+        torch = self.torch
+        from repro_torch.train.tree import leaves
+
+        root = ROOT / "build" / "sharded_train" / "resume"
+        shutil.rmtree(root, ignore_errors=True)
+        half, steps = size["resume_at"], size["resume_steps"]
+        rec = result["elastic_resume"] = {"config": cfg.name, "layers": cfg.n_layers,
+                                          "checkpoint_mesh": dict(mesh.shape), "at": half,
+                                          "steps": steps}
+        t_resume = time.perf_counter()
+        try:
+            t0 = time.perf_counter()
+            first = self._sharded_trainer(cfg, sparse, size, root / "written", mesh=mesh,
+                                          steps=half).run(0)
+            rec["write_s"] = time.perf_counter() - t0
+            written = leaves((first["params"], first["opt_state"]))
+            del first
+            runs = {}
+            for name, m in (("other_mesh", self._train_mesh(SHARDED_TRAIN_RESUME_MESH)),
+                            ("no_mesh", None)):
+                d = root / name
+                d.mkdir(parents=True)
+                shutil.copytree(root / "written" / f"step_{half:08d}", d / f"step_{half:08d}",
+                                copy_function=os.link)
+                t = self._sharded_trainer(cfg, sparse, size, d, mesh=m, steps=steps, save=False)
+                restore = t._restore
+
+                def restored(step, restore=restore, name=name):
+                    t0 = time.perf_counter()
+                    params, opt = restore(step)
+                    rec[f"restore_s_{name}"] = time.perf_counter() - t0
+                    rec[f"restored_bitwise_{name}"] = all(
+                        torch.equal(a, b) for a, b in zip(leaves((params, opt)), written))
+                    return params, opt
+
+                t._restore = restored
+                metrics = self._spy_steps(t)
+                out = t.run(0)
+                expect(rec[f"restored_bitwise_{name}"], f"sharded_train (d): the state restored "
+                       f"{name.replace('_', ' ')} differs from the writer's")
+                expect(out["final_step"] == steps and len(out["losses"]) == steps - half,
+                       f"sharded_train (d): the {name} Trainer ran to {out['final_step']}")
+                runs[name] = {"losses": out["losses"],
+                              "grad_norms": [float(x["grad_norm"]) for x in metrics],
+                              "params": out["params"]}
+                del t, out, metrics
+            rec["first_resumed_loss_bitwise"] = (runs["other_mesh"]["losses"][0]
+                                                 == runs["no_mesh"]["losses"][0])
+            expect(rec["first_resumed_loss_bitwise"], "sharded_train (d): the first resumed "
+                   f"step's loss differs: {runs['other_mesh']['losses'][0]} on "
+                   f"{SHARDED_TRAIN_RESUME_MESH[0]}, {runs['no_mesh']['losses'][0]} with no mesh")
+            rec["other_vs_no_mesh"] = self._agreement(runs["other_mesh"], runs["no_mesh"],
+                                                      "sharded_train (d)")
+            rec["continuations_bitwise"] = (
+                runs["other_mesh"]["losses"] == runs["no_mesh"]["losses"]
+                and all(torch.equal(a, b) for a, b in zip(leaves(runs["other_mesh"]["params"]),
+                                                          leaves(runs["no_mesh"]["params"]))))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+            rec["seconds"] = time.perf_counter() - t_resume
+
     # -- phase 10 ------------------------------------------------------- #
     def analysis(self) -> dict:
         """The static gate (repro_torch.analysis) on the card: the whole
@@ -4417,7 +4848,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernels,golden,main,sharded,stream,train,serve,e2e,lm_train,"
-                            "zoo,cross,analysis")
+                            "zoo,cross,sharded_train,analysis")
     ap.add_argument("--out", default=None,
                     help="also write the kernel summary and every printed record to this JSON file")
     ap.add_argument("--rehearse", action="store_true",
@@ -4441,11 +4872,11 @@ def main(argv=None) -> int:
     device = smoke.device()
     records, main_launches, train_launches, serve_launches = {}, None, None, None
     stream_launches = e2e_launches = lm_launches = sharded_launches = None
-    analysis_launches = zoo_launches = cross_launches = None
+    analysis_launches = zoo_launches = cross_launches = sharded_train_launches = None
     rows = REHEARSAL_ROWS if args.rehearse else ROWS
     data = (make_data(np, rows)
             if phases & {"kernels", "main", "sharded", "stream", "train", "serve", "e2e", "zoo",
-                         "cross"}
+                         "cross", "sharded_train"}
             else None)
     if "kernels" in phases:
         records = smoke.kernels(data)
@@ -4516,6 +4947,13 @@ def main(argv=None) -> int:
                 expect(all(m[name] > 0 for m in cross_launches.values()),
                        f"cross path: {name} was not launched by every layer kind of a prefill")
 
+    if "sharded_train" in phases:
+        sharded_train_launches = smoke.sharded_train(data)
+        if not args.rehearse:
+            for name in SHARDED_TRAIN_KERNELS:
+                expect(all(m[name] > 0 for m in sharded_train_launches.values()),
+                       f"sharded_train path: {name} was not launched in the EP prefill")
+
     if "analysis" in phases:
         analysis_launches = smoke.analysis()
         if not args.rehearse:
@@ -4524,12 +4962,12 @@ def main(argv=None) -> int:
                        "launched")
 
     # launches on the paths: the main, sharded, stream, train and e2e phases'
-    # per range, the serve and zoo phases' per prefill, the cross phase's per
-    # prefill and layer kind, the lm_train phase's, the analysis phase's
-    # audited routes
+    # per range, the serve, zoo and sharded_train phases' per prefill, the
+    # cross phase's per prefill and layer kind, the lm_train phase's, the
+    # analysis phase's audited routes
     paths = [m for m in (main_launches, sharded_launches, stream_launches, train_launches,
                          serve_launches, e2e_launches, lm_launches, zoo_launches,
-                         cross_launches, analysis_launches)
+                         cross_launches, sharded_train_launches, analysis_launches)
              if m is not None]
     kernels = []
     for key, rec in records.items():
@@ -4552,7 +4990,7 @@ def main(argv=None) -> int:
             "on_main_path": name in (PATH_KERNELS + SHARDED_KERNELS + STREAM_KERNELS
                                      + TRAIN_KERNELS + SERVE_KERNELS + E2E_KERNELS
                                      + LM_TRAIN_KERNELS + ZOO_KERNELS + CROSS_KERNELS
-                                     + ANALYSIS_KERNELS),
+                                     + SHARDED_TRAIN_KERNELS + ANALYSIS_KERNELS),
             "shape": rec["shape"],
         })
     seconds = time.perf_counter() - t_start

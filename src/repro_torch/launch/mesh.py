@@ -1,13 +1,11 @@
-"""Device meshes for the sharded preprocessing engines.
+"""Device meshes for the sharded engines and sharded training.
 
-Counterpart of ``repro/launch/mesh.py`` (``make_mesh``, ``data_axes``,
-``make_data_mesh``). A :class:`DeviceMesh` names the axes and gives one
-``torch.device`` per mesh position, in row-major order. Positions may
-share a device: on a machine with one card every shard of a mesh runs on
-``cuda:0``, one after another on the caller's stream.
-
-The reference's ``make_production_mesh`` (TPU pods of 256 and 512 chips)
-comes with sharded training (ROADMAP queue 1 item 10, slice 19).
+Counterpart of ``repro/launch/mesh.py`` (``make_production_mesh``,
+``make_mesh``, ``data_axes``, ``make_data_mesh``). A :class:`DeviceMesh`
+names the axes and gives one ``torch.device`` per mesh position, in
+row-major order. Positions may share a device: on a machine with one card
+every shard of a mesh runs on ``cuda:0``, one after another on the
+caller's stream.
 """
 
 from __future__ import annotations
@@ -71,6 +69,16 @@ def _cuda_devices(n: int) -> list[torch.device]:
             "a 'cuda' mesh but no CUDA device is available; pass device='cpu' to "
             "put every position on the CPU")
     return [torch.device("cuda", k % torch.cuda.device_count()) for k in range(n)]
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: str | torch.device | Sequence | None = None) -> DeviceMesh:
+    """The reference's production layouts: ``(16, 16)`` over ``("data",
+    "model")`` (256 positions), or ``(2, 16, 16)`` over ``("pod", "data",
+    "model")`` (512), placed as :func:`make_mesh` places them."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=devices)
 
 
 def make_mesh(

@@ -64,6 +64,7 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention, common, mlp, ssm
 from repro_torch.models.common import LayerSpec, ModelConfig, Params
@@ -405,7 +406,8 @@ class LM:
         for sb in params["blocks"]:
             if remat:
                 x32, aux = checkpoint(self._superblock_body, x32, aux, sb, compute_dtype,
-                                      context, use_reentrant=False, preserve_rng_state=False)
+                                      context, use_reentrant=False, preserve_rng_state=False,
+                                      context_fn=shard_lib.checkpoint_contexts)
             else:
                 x32, aux = self._superblock_body(x32, aux, sb, compute_dtype, context)
         return common.norm(x32.to(compute_dtype), params["final_norm"], self.cfg.norm), aux
@@ -560,7 +562,8 @@ class EncDec:
         remat = self.remat and torch.is_grad_enabled()
         for sb in enc["blocks"]:
             x = (checkpoint(self._encoder_body, x, sb, use_reentrant=False,
-                            preserve_rng_state=False) if remat else self._encoder_body(x, sb))
+                            preserve_rng_state=False, context_fn=shard_lib.checkpoint_contexts)
+                 if remat else self._encoder_body(x, sb))
         return common.norm(x, enc["final_norm"], self.cfg.norm)
 
     def forward(self, params: Params, tokens: torch.Tensor, frames: torch.Tensor,

@@ -8,19 +8,23 @@ batched expert products, the gather and gate-weighted combine, the Switch
 load-balancing auxiliary loss, and the shared experts (dense MLPs applied
 to every token beside the routed path).
 
-``moe_forward`` is the reference's dense dispatch path
-(``_moe_forward_dense``), the one it takes without a device mesh. Its
-expert-parallel path (``_moe_forward_ep``, a ``shard_map`` over the
-``model`` axis) comes with the parameter sharding (ROADMAP queue 1 item
-10, slice 19). The reference pads the expert axis to a multiple of 16 for
-its TPU mesh; the padded experts are unreachable (the router has no logit
-for them), so the port leaves the padding out.
+``moe_forward`` dispatches as the reference's: under a mesh
+(``distributed.sharding.use_mesh``) whose ``model`` axis (size > 1)
+divides the expert count it takes the expert-parallel path
+(:func:`_moe_forward_ep`, the reference's ``shard_map``), else the dense
+path (:func:`_moe_forward_dense`). The reference pads the expert axis to a
+multiple of 16 for its TPU mesh; the padded experts are unreachable (the
+router has no logit for them), so the port leaves the padding out.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.distributed import sharding as shard_lib
+from repro_torch.launch.mesh import data_axes
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, Params
 
@@ -119,11 +123,46 @@ def moe_forward(x: torch.Tensor, params: Params, cfg: ModelConfig,
                 kind: str) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,d] → (out [B,S,d], the Switch auxiliary loss, float32 scalar).
 
-    The dense dispatch: each kept (token, k) is written to its expert's
-    slot of a ``[E·cap + 1, d]`` buffer (dropped ones to the last row,
-    which no expert reads), one scatter per k, so no ``[T·K, d]`` copy of
-    the tokens is made; the expert weights are cast to x's dtype as they
-    are read. Serving drops the auxiliary loss; training adds it."""
+    The expert-parallel path under a :func:`~repro_torch.distributed.
+    sharding.use_mesh` mesh whose ``model`` axis (size > 1) divides the
+    expert count, else the dense path. Serving drops the auxiliary loss;
+    training adds it."""
+    mesh = shard_lib.current_mesh()
+    m = cfg.moe
+    if (mesh is not None and "model" in mesh.axis_names and mesh.shape["model"] > 1
+            and m.n_experts % mesh.shape["model"] == 0):
+        return _moe_forward_ep(x, params, cfg, kind, mesh)
+    return _moe_forward_dense(x, params, cfg, kind)
+
+
+def _moe_forward_ep(x: torch.Tensor, params: Params, cfg: ModelConfig, kind: str,
+                    mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's expert-parallel path, its positions run one after
+    another in this process. Tokens stay on their data shard (the batch
+    split over the data axes) and each shard routes its own tokens, with
+    the capacity of its own token count; each model rank runs the kept
+    choices of its ``E / tp`` experts, and the ranks' partial sums meet in
+    the reference's ``psum``. The ranks' experts together are all the
+    experts, so a shard's output is the dense path's over the shard's
+    rows, which this runs shard by shard. The auxiliary loss is each
+    shard's own, averaged over the data shards (the ``pmean``). Raises
+    ``ValueError`` when the batch does not split over the data axes."""
+    n_data = math.prod(mesh.shape[a] for a in data_axes(mesh))
+    if x.shape[0] % n_data:
+        raise ValueError(f"batch {x.shape[0]} does not split over {n_data} data shards of mesh "
+                         f"{dict(mesh.shape)}")
+    parts = [_moe_forward_dense(xs, params, cfg, kind) for xs in x.chunk(n_data)]
+    return torch.cat([o for o, _ in parts]), torch.stack([a for _, a in parts]).mean()
+
+
+def _moe_forward_dense(x: torch.Tensor, params: Params, cfg: ModelConfig,
+                       kind: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's dense dispatch path (no mesh, or an expert count
+    the ``model`` axis does not divide): each kept (token, k) is written
+    to its expert's slot of a ``[E·cap + 1, d]`` buffer (dropped ones to
+    the last row, which no expert reads), one scatter per k, so no
+    ``[T·K, d]`` copy of the tokens is made; the expert weights are cast
+    to x's dtype as they are read."""
     m = cfg.moe
     b, s, d = x.shape
     tokens = b * s

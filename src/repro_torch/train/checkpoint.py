@@ -16,7 +16,11 @@ indices and dataclass field names, e.g. ``params/tables``,
     restore lists only steps whose manifest says ``complete``.
   * **async**: :class:`AsyncCheckpointer` copies the tree to host memory
     on the caller's thread, then writes it on a thread of its own.
-  * ``restore`` rebuilds the port's tensors on the device it is given.
+  * ``restore`` rebuilds the port's tensors on the device it is given,
+    or, with a ``sharding_fn``, places each leaf as the blocks of its
+    ``NamedSharding`` on a mesh as it loads: a checkpoint resumes on
+    another mesh than the one that wrote it (elastic restore), since the
+    leaves are stored whole.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch.train.tree import leaves_with_paths, tree_map
+from repro_torch.distributed import sharding as shard_lib
+from repro_torch.train.tree import leaves, leaves_with_paths, tree_map
 
 _SEP = "/"
 
@@ -135,14 +140,21 @@ def latest_step(root: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(root: str, step: int, like, *, device="cuda"):
+def restore(root: str, step: int, like, *, device="cuda", sharding_fn=None):
     """The checkpoint of ``step`` in the structure of ``like`` (a tree whose
     leaves have ``.shape``: tensors, arrays), every leaf a tensor on
-    ``device``. Raises ``KeyError`` for a leaf the checkpoint lacks and
-    ``ValueError`` for one of another shape."""
+    ``device``. ``sharding_fn(like) → tree of NamedSharding`` (e.g.
+    ``lambda t: sharding.param_shardings(t, mesh)``) places each leaf
+    instead as it loads: a ``sharding.ShardedTensor`` whose blocks lie on
+    the mesh's devices (views of one copy where positions share a device),
+    and ``device`` is not used. Raises ``KeyError`` for a leaf the
+    checkpoint lacks and ``ValueError`` for one of another shape."""
     d = os.path.join(root, f"step_{step:08d}")
     with open(os.path.join(d, "MANIFEST.json")) as f:
         manifest = json.load(f)
+    shardings = None
+    if sharding_fn is not None:
+        shardings = iter(leaves(sharding_fn(like)))
     loaded = []
     for path, leaf in leaves_with_paths(like):
         key = _SEP.join(path)
@@ -153,6 +165,8 @@ def restore(root: str, step: int, like, *, device="cuda"):
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"leaf {key!r}: checkpoint shape {arr.shape}, expected "
                              f"{tuple(leaf.shape)}")
-        loaded.append(torch.from_numpy(arr).to(device))
+        t = torch.from_numpy(arr)
+        loaded.append(t.to(device) if shardings is None
+                      else shard_lib.ShardedTensor.of(t, next(shardings)))
     it = iter(loaded)
     return tree_map(lambda _: next(it), like)

@@ -24,9 +24,20 @@ place (``train/steps.py``); the loss of step *i* is read on the host only
 after step *i+1* is enqueued, and always before a save. While the
 process tracer is on (:mod:`repro_torch.obs`), each save's snapshot is the
 span ``train/checkpoint`` and the wait for its write at the end of
-:meth:`Trainer.run` ``train/checkpoint_wait``. The mesh and sharding
-arguments come with the parameter rules of ``distributed/sharding.py``
-(ROADMAP queue 1 item 10, slice 19) and raise if given.
+:meth:`Trainer.run` ``train/checkpoint_wait``.
+
+``Trainer(mesh=, shardings=(p_sh, o_sh, b_sh))`` trains over a
+:class:`~repro_torch.launch.mesh.DeviceMesh` with the reference's
+contract: the step's values are those of the unsharded step over the
+global batch. Every position of the mesh must lie on the model's device
+(on one card, all on ``cuda:0``), so the blocks of ``p_sh`` / ``o_sh``
+are views of the whole parameters and AdamW moments (``run()`` returns
+them under ``placement``): AdamW over the blocks is the elementwise update
+of the whole tensors, with the same global norm, and the step is
+:func:`steps.make_train_step`'s over the global batch. As the
+reference's, the trainer does not enter ``sharding.use_mesh``; a caller
+that wants the expert-parallel MoE path (each data shard routed on its
+own) wraps :meth:`Trainer.run` in it.
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ import numpy as np
 import torch
 
 from repro_torch import interop, obs
+from repro_torch.distributed import sharding as shard_lib
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import steps as steps_lib
@@ -62,6 +75,14 @@ class TrainerConfig:
     handle_signals: bool = True
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """``device`` with its index (a CUDA device named without one is the
+    current one)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class Trainer:
     def __init__(
         self,
@@ -70,15 +91,25 @@ class Trainer:
         cfg: TrainerConfig,
         batch_fn: Callable[[int], dict],
         *,
-        mesh=None,
-        shardings: tuple | None = None,
+        mesh: DeviceMesh | None = None,
+        shardings: tuple | None = None,  # (params_sh, opt_sh, batch_sh)
         extra_state: Params | None = None,  # e.g. Piper's VocabState
         straggler_callback: Callable[[int, float], None] | None = None,
     ):
-        if mesh is not None or shardings is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=..., shardings=...): sharded training comes with the parameter "
-                "rules of distributed/sharding.py (ROADMAP queue 1 item 10, slice 19)")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise ValueError(f"mesh must be a DeviceMesh, got {type(mesh).__name__}")
+        if shardings is not None and mesh is None:
+            raise ValueError("shardings without a mesh")
+        self.shardings = None
+        if shardings is not None:
+            if len(shardings) != 3:
+                raise ValueError("shardings must be (params_sh, opt_sh, batch_sh)")
+            devices = mesh.distinct_devices()
+            if [_indexed(d) for d in devices] != [_indexed(model.device)]:
+                raise ValueError(
+                    f"the mesh's positions lie on {devices}; the sharded trainer holds every "
+                    f"block on the model's device {model.device}")
+            self.shardings = tuple(shardings)
         self.model = model
         self.opt_cfg = opt_cfg
         self.cfg = cfg
@@ -126,6 +157,17 @@ class Trainer:
         tree = ckpt_lib.restore(self.cfg.ckpt_dir, step, like, device="cpu")
         return interop.lm_train_state_from_numpy(tree, self.model.cfg, device=self.model.device)
 
+    def _place(self, params, opt_state) -> dict | None:
+        """The blocks of ``params`` under ``p_sh`` and of ``opt_state``
+        under ``o_sh`` (views of the whole tensors), as trees of
+        ``sharding.ShardedTensor``; None without shardings."""
+        if self.shardings is None:
+            return None
+        p_sh, o_sh, _ = self.shardings
+        of = shard_lib.ShardedTensor.of
+        return {"params": tree_map(lambda p, sh: of(p.detach(), sh), params, p_sh),
+                "opt": tree_map(lambda x, sh: of(x, sh), opt_state, o_sh)}
+
     def _batch(self, step: int) -> dict:
         dev = self.model.device
         return {k: torch.as_tensor(v).to(dev) for k, v in self.batch_fn(step).items()}
@@ -146,6 +188,7 @@ class Trainer:
             params = self.model.init(gen)
             opt_state = opt_lib.adamw_init(params)
             start = 0
+        placement = self._place(params, opt_state)
 
         losses: list[float] = []
         step_times: list[float] = []
@@ -177,7 +220,7 @@ class Trainer:
         def rollback(bad_step: int) -> None:
             """Restore the last checkpoint (the in-flight step's parameters
             go with it)."""
-            nonlocal params, opt_state, step, rollbacks, pending
+            nonlocal params, opt_state, placement, step, rollbacks, pending
             pending = None
             rollbacks += 1
             last = ckpt_lib.latest_step(self.cfg.ckpt_dir)
@@ -185,6 +228,7 @@ class Trainer:
                 raise FloatingPointError(f"non-finite loss at step {bad_step}")
             self._ckpt.wait()
             params, opt_state = self._restore(last)
+            placement = self._place(params, opt_state)
             step = last
 
         step = start
@@ -248,4 +292,5 @@ class Trainer:
             "input_wait_s": input_wait_s,
             "params": params,
             "opt_state": opt_state,
+            "placement": placement,
         }

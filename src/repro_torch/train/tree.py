@@ -55,3 +55,22 @@ def tree_map(fn: Callable, tree, *rest):
             for f in dataclasses.fields(tree)
         })
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree, prefix: tuple[str, ...] = ()):
+    """``fn(path, leaf)`` over the leaves of ``tree``, each with its path
+    as :func:`leaves_with_paths` gives it, in a tree of ``tree``'s
+    structure."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], prefix + (str(k),)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, prefix + (str(i),))
+                          for i, v in enumerate(tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map_with_path(fn, getattr(tree, f.name), prefix + (f.name,))
+            for f in dataclasses.fields(tree)
+        })
+    return fn(prefix, tree)

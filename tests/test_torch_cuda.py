@@ -11,6 +11,7 @@ chip_smoke.py runs the same comparisons at the main path's full shapes.
 """
 
 import dataclasses
+import shutil
 import threading
 import time
 
@@ -20,12 +21,15 @@ import torch
 from chip_smoke import decode_edge_chunks, device_kernels, hostile_rows
 
 from repro_torch import configs as tconfigs
+from repro_torch import interop as tinterop
 from repro_torch.configs import gemma_2b as tgemma
 from repro_torch.configs import piper_dlrm as tcfg
 from repro_torch.core import pipeline as P
 from repro_torch.core import plan as tplan
 from repro_torch.core import vocab as tvocab
 from repro_torch.data import synth
+from repro_torch.distributed import compression as tcomp
+from repro_torch.distributed import sharding as tsharding
 from repro_torch.kernels import _scratch
 from repro_torch.kernels.decode_utf8 import ops as dops
 from repro_torch.kernels.decode_utf8 import ref as dref
@@ -45,13 +49,16 @@ from repro_torch.kernels.fused_xform import ops as fxops
 from repro_torch.kernels.fused_xform import ref as fxref
 from repro_torch.kernels.vocab import ops as vops
 from repro_torch.kernels.vocab import ref as vref
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import specs as tspecs
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.models import lm as tlm
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import ssm as tssm
+from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import optimizer as topt
 from repro_torch.train import steps as tsteps
+from repro_torch.train import trainer as ttrainer
 from repro_torch.train import tree as ttree
 from repro_torch.train.tree import leaves
 
@@ -1699,6 +1706,152 @@ def test_cross_smoke_on_card_matches_cpu(cuda, arch):
             g, gs = card_dec.decode_step(card_params, tokens[:, pos].to(cuda), gs, pos,
                                          compute_dtype=f32)
             assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+# --------------------------------------------------------------------- #
+# sharded training: the expert-parallel MoE path, the sharded Trainer, the
+# int8 compressed mean, the elastic restore (every mesh position on cuda:0)
+# --------------------------------------------------------------------- #
+class _F32LM(tlm.LM):
+    """The LM with float32 compute in its loss."""
+
+    def loss(self, params, tokens, compute_dtype=torch.float32, aux_weight=0.01, context=None):
+        return super().loss(params, tokens, torch.float32, aux_weight, context)
+
+
+def _moe_smoke(capacity_factor=1.25):
+    cfg = tconfigs.get_smoke("qwen2-moe-a2.7b")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            capacity_factor=capacity_factor))
+
+
+def _mesh_shardings(model, mesh):
+    skeleton = tlm.LM(model.cfg, device="meta").init()
+    return (tsharding.param_shardings(skeleton, mesh),
+            tsharding.param_shardings(topt.adamw_init(skeleton), mesh),
+            tsharding.NamedSharding(mesh, tsharding.batch_spec(mesh)))
+
+
+def test_ep_prefill_on_card_equals_the_dense_path_per_shard(cuda):
+    """qwen2-moe SMOKE at capacity 1.25 (choices drop), float32, TF32 off,
+    on the flash route (one launch a layer) over mesh (2, 4) on cuda:0: the
+    EP trunk equals the dense path run on each data shard's rows within
+    1e-5 relative L2, its auxiliary loss the shards' mean within 1e-6."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_smoke()
+    model = tlm.LM(cfg, attn_impl="flash", device=cuda)
+    params = model.init(torch.Generator(cuda).manual_seed(0))
+    mesh = tmesh.make_mesh((2, 4), ("data", "model"), devices=cuda.type)
+    assert mesh.distinct_devices() == [torch.device(cuda.type, 0 if cuda.type == "cuda" else None)]
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 128), dtype=np.int32)).to(cuda)
+    real, drops = tmlp.moe_route, []
+
+    def spy(xt, p, c):
+        r = real(xt, p, c)
+        drops.append(int((~r["keep"]).sum()))
+        return r
+
+    with torch.no_grad():
+        tmlp.moe_route = spy
+        try:
+            fops.KERNEL.launches = 0
+            with tsharding.use_mesh(mesh):
+                x_ep, aux_ep = model.trunk(params, tokens, torch.float32)
+            torch.cuda.synchronize()
+            assert fops.KERNEL.launches == cfg.n_layers
+        finally:
+            tmlp.moe_route = real
+        parts = [model.trunk(params, t, torch.float32) for t in tokens.chunk(2)]
+    assert len(drops) == 2 * cfg.n_layers and sum(drops) > 0
+    want = torch.cat([x for x, _ in parts])
+    assert float((x_ep - want).norm() / want.norm()) <= 1e-5
+    aux = torch.stack([a for _, a in parts]).mean()
+    assert abs(float(aux_ep) / float(aux) - 1) <= 1e-6
+
+
+def _card_trainer(root, cfg, tokens, cuda, mesh=None, total_steps=2, ckpt_every=100):
+    model = _F32LM(cfg, device=cuda)
+    tcfg = ttrainer.TrainerConfig(total_steps=total_steps, ckpt_dir=str(root),
+                                  ckpt_every=ckpt_every, handle_signals=False)
+    return ttrainer.Trainer(model, topt.AdamWConfig(), tcfg, lambda s: {"tokens": tokens[s]},
+                            mesh=mesh, shardings=None if mesh is None else
+                            _mesh_shardings(model, mesh))
+
+
+def test_sharded_trainer_on_card_matches_the_unsharded_trainer(cuda, tmp_path):
+    """qwen2-moe SMOKE, float32, TF32 off, 2 steps under use_mesh (EP with
+    autograd) on mesh (2, 4), sharded and unsharded from the same seed:
+    losses within 1e-5 relative, every weight within lr / 10, and the
+    sharded run's blocks views of its whole tensors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_smoke()
+    mesh = tmesh.make_mesh((2, 4), ("data", "model"), devices=cuda.type)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 4, 64), dtype=np.int32))
+    runs = []
+    for name, m in (("plain", None), ("sharded", mesh)):
+        with tsharding.use_mesh(mesh):
+            runs.append(_card_trainer(tmp_path / name, cfg, tokens, cuda, mesh=m).run(0))
+    plain, sharded = runs
+    np.testing.assert_allclose(sharded["losses"], plain["losses"], rtol=1e-5, atol=0)
+    for a, b in zip(leaves(sharded["params"]), leaves(plain["params"])):
+        assert float((a.detach() - b.detach()).abs().max()) <= 1e-3 / 10
+    for st, t in zip(leaves(sharded["placement"]["params"]), leaves(sharded["params"])):
+        assert all(b.device == t.device
+                   and b.untyped_storage().data_ptr() == t.untyped_storage().data_ptr()
+                   for b in st.blocks)
+
+
+def test_compressed_mean_on_card_equals_the_cpu(cuda):
+    """compressed_psum_mean over [2, ...] leaves on the card, three rounds
+    of error feedback, equal to the CPU's bit for bit, and the card's
+    residual y - dequant exact."""
+    rng = np.random.default_rng(6)
+    shapes = {"a": (2, 300, 7), "b": (2, 1000), "z": (2, 3)}
+    err_c = tcomp.error_state_init({k: torch.zeros(s) for k, s in shapes.items()})
+    err_g = ttree.tree_map(lambda t: t.to(cuda), err_c)
+    for r in range(3):
+        g = {k: torch.from_numpy((rng.standard_normal(s) * 10.0 ** r).astype(np.float32))
+             for k, s in shapes.items()}
+        g["z"].zero_()
+        mean_c, err_c = tcomp.compressed_psum_mean(g, err_c)
+        mean_g, err_g = tcomp.compressed_psum_mean(ttree.tree_map(lambda t: t.to(cuda), g),
+                                                   err_g)
+        for k in shapes:
+            assert torch.equal(mean_g[k].cpu(), mean_c[k]) and torch.equal(err_g[k].cpu(),
+                                                                          err_c[k])
+
+
+def test_elastic_resume_on_card(cuda, tmp_path):
+    """qwen2-moe SMOKE, float32: two steps under mesh (2, 4) with a
+    checkpoint; restored with a sharding_fn onto (4, 2), every block on the
+    card and the whole equal to the saved leaf bit for bit; a Trainer on
+    (4, 2) and one with no mesh resume it, their first resumed losses equal
+    bit for bit and their final weights within lr / 10."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_smoke()
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 4, 64), dtype=np.int32))
+    mesh, other = (tmesh.make_mesh(s, ("data", "model"), devices=cuda.type)
+                   for s in ((2, 4), (4, 2)))
+    _card_trainer(tmp_path / "written", cfg, tokens, cuda, mesh=mesh).run(0)
+    like = tinterop.lm_train_state_like(cfg)
+    back = tckpt.restore(str(tmp_path / "written"), 2, like,
+                         sharding_fn=lambda t: tsharding.param_shardings(t, other))
+    plain = tckpt.restore(str(tmp_path / "written"), 2, like, device="cpu")
+    for st, want in zip(leaves(back), leaves(plain)):
+        assert all(b.device.type == cuda.type for b in st.blocks)
+        assert torch.equal(st.full().cpu(), want)
+    runs = []
+    for name, m in (("other", other), ("none", None)):
+        shutil.copytree(tmp_path / "written" / "step_00000002",
+                        tmp_path / name / "step_00000002")
+        runs.append(_card_trainer(tmp_path / name, cfg, tokens, cuda, mesh=m,
+                                  total_steps=4).run(0))
+    assert runs[0]["losses"][0] == runs[1]["losses"][0]
+    for a, b in zip(leaves(runs[0]["params"]), leaves(runs[1]["params"])):
+        assert float((a.detach() - b.detach()).abs().max()) <= 1e-3 / 10
 
 
 # --------------------------------------------------------------------- #

@@ -183,6 +183,54 @@ print("LEAKED", leaked)
 """
 
 
+_RUN_SHARDED_PORT_ONLY = """
+import sys
+import tempfile
+import torch
+from repro_torch import configs, interop
+from repro_torch.distributed import compression, sharding
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import lm, mlp
+from repro_torch.train import checkpoint, optimizer, trainer
+
+# qwen2-moe-a2.7b SMOKE: the expert-parallel MoE path, a sharded Trainer
+# step under use_mesh, its checkpoint restored onto another mesh, the
+# int8 compressed mean, the production mesh's rules
+cfg = configs.get_smoke("qwen2-moe-a2.7b")
+mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), devices="cpu")
+params = mlp.moe_init(torch.Generator().manual_seed(0), cfg, "swiglu", device="cpu")
+with sharding.use_mesh(mesh):
+    out, aux = mlp.moe_forward(torch.randn(4, 8, cfg.d_model), params, cfg, "swiglu")
+assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(aux))
+model = lm.LM(cfg, device="cpu")
+skeleton = model.init()
+shardings = (sharding.param_shardings(skeleton, mesh),
+             sharding.param_shardings(optimizer.adamw_init(skeleton), mesh),
+             sharding.NamedSharding(mesh, sharding.batch_spec(mesh)))
+with tempfile.TemporaryDirectory() as root:
+    tr = trainer.Trainer(model, optimizer.AdamWConfig(), trainer.TrainerConfig(
+        total_steps=1, ckpt_dir=root, handle_signals=False),
+        lambda s: {"tokens": torch.zeros((4, 16), dtype=torch.int32)}, mesh=mesh,
+        shardings=shardings)
+    with sharding.use_mesh(mesh):
+        run = tr.run(0)
+    assert run["final_step"] == 1
+    other = mesh_lib.make_mesh((1, 4), ("data", "model"), devices="cpu")
+    back = checkpoint.restore(root, 1, interop.lm_train_state_like(cfg),
+                              sharding_fn=lambda t: sharding.param_shardings(t, other))
+    assert all(isinstance(st, sharding.ShardedTensor) for st in
+               [back["params"]["embed"], back["opt"]["step"]])
+grads = {"w": torch.randn(2, 5, 3)}
+mean, err = compression.compressed_psum_mean(grads, compression.error_state_init(grads))
+assert mean["w"].shape == (5, 3) and err["w"].shape == (2, 5, 3)
+big = mesh_lib.make_production_mesh(multi_pod=True, devices="cpu")
+assert sharding.param_shardings(skeleton, big)["embed"].spec == sharding.PartitionSpec(
+    "model", ("pod", "data"))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", leaked)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO / "src")
@@ -213,6 +261,18 @@ def test_cross_attention_runs_without_jax_or_repro_in_sys_modules():
     process that never imports JAX or the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _RUN_CROSS_PORT_ONLY], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300, check=True,
+    ).stdout
+    assert "LEAKED []" in out, out
+
+
+def test_sharded_training_runs_without_jax_or_repro_in_sys_modules():
+    """qwen2-moe-a2.7b SMOKE's expert-parallel MoE path, a sharded Trainer
+    step under use_mesh and its checkpoint restored onto another mesh, the
+    int8 compressed mean and the production mesh's rules, in a process that
+    never imports JAX or the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _RUN_SHARDED_PORT_ONLY], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=300, check=True,
     ).stdout
     assert "LEAKED []" in out, out

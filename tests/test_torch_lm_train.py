@@ -389,10 +389,15 @@ def test_trainer_contract(contract, tmp_path):
 
 
 def test_trainer_refuses_a_mesh():
+    """A mesh that is no DeviceMesh, or shardings without a mesh, raise
+    ValueError (the sharded trainer itself: tests/test_torch_ep.py)."""
     cfg, model = _tiny_model()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(ValueError, match="mesh must be a DeviceMesh"):
         ttrainer.Trainer(model, topt.AdamWConfig(), ttrainer.TrainerConfig(), lambda s: {},
                          mesh=object())
+    with pytest.raises(ValueError, match="shardings without a mesh"):
+        ttrainer.Trainer(model, topt.AdamWConfig(), ttrainer.TrainerConfig(), lambda s: {},
+                         shardings=(None, None, None))
 
 
 def _jax_trainer(root, total_steps, ckpt_every):

@@ -1,6 +1,7 @@
 """Run the port's row-parallel loop ① as one process per instance, merged
-with ``all_reduce_state`` over gloo; a helper of the port's sharded tests.
-It imports neither JAX nor the JAX package, so the card tests use it too."""
+with ``all_reduce_state`` over gloo, and any other script as one process a
+rank; helpers of the port's sharded tests. It imports neither JAX nor the
+JAX package, so the card tests use it too."""
 
 import os
 import socket
@@ -43,20 +44,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(world: int, stacks, offsets, tmp_path, *, chunk_bytes: int, max_rows: int,
-              device: str = "cpu", timeout: float = 120) -> list[dict]:
-    """``world`` processes on this host, rank ``k`` with shard ``k`` of the
-    utf8 feed (``shard_stacks()``), each building its local state with
-    count plane on ``device`` and calling ``all_reduce_state``; every
-    rank's merged state as numpy arrays."""
-    np.savez(Path(tmp_path) / "feed.npz", stacks=stacks, offsets=offsets)
+def spawn_ranks(code: str, world: int, *args: str, timeout: float = 120) -> None:
+    """``world`` processes of ``code`` on this host, rank ``r`` run as
+    ``python -c code r world tcp://127.0.0.1:<port> *args``; each must exit
+    0 and print OK."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     addr = f"tcp://127.0.0.1:{_free_port()}"
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _RANK, str(r), str(world), addr, str(tmp_path),
-         str(chunk_bytes), str(max_rows), device],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world), addr, *args],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
     try:
         outs = [p.communicate(timeout=timeout) for p in procs]
     finally:
@@ -65,4 +61,15 @@ def run_ranks(world: int, stacks, offsets, tmp_path, *, chunk_bytes: int, max_ro
             p.wait()
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0 and "OK" in out, err[-4000:]
+
+
+def run_ranks(world: int, stacks, offsets, tmp_path, *, chunk_bytes: int, max_rows: int,
+              device: str = "cpu", timeout: float = 120) -> list[dict]:
+    """``world`` processes on this host, rank ``k`` with shard ``k`` of the
+    utf8 feed (``shard_stacks()``), each building its local state with
+    count plane on ``device`` and calling ``all_reduce_state``; every
+    rank's merged state as numpy arrays."""
+    np.savez(Path(tmp_path) / "feed.npz", stacks=stacks, offsets=offsets)
+    spawn_ranks(_RANK, world, str(tmp_path), str(chunk_bytes), str(max_rows), device,
+                timeout=timeout)
     return [dict(np.load(Path(tmp_path) / f"rank{r}.npz")) for r in range(world)]
